@@ -1,0 +1,27 @@
+"""audiotoken_tpu_torch — the PyTorch and CUDA port of audiotoken_tpu.
+
+Runs on an NVIDIA Hopper GPU (H100), with hand-written CUDA kernels where
+the JAX package had Pallas kernels and plain PyTorch elsewhere. Ported so
+far: acoustic encode (SEANet encoder + residual VQ), through
+``AudioToken(Tokenizers.acoustic, ...).encode`` and ``AcousticEncoder``.
+
+Imports ``torch`` and ``numpy``, never JAX. The device is explicit: the
+default is CUDA, and ``device="cpu"`` runs every kernel's plain PyTorch
+version. Importing the package builds nothing; the kernels are compiled
+at first use on a CUDA tensor (``ops/_build.py``).
+"""
+
+from .api import AudioToken
+from .configs import Tokenizers
+from .encoders import AcousticEncoder
+from .io.audio import read_audio
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "AudioToken",
+    "AcousticEncoder",
+    "Tokenizers",
+    "read_audio",
+    "__version__",
+]

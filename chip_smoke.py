@@ -1,0 +1,274 @@
+"""End-to-end check of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (the script then exits non-zero):
+
+  1. a CUDA device is present; print its name and power limit;
+  2. build the hand-written kernels from ``audiotoken_tpu_torch/csrc``;
+  3. each kernel against its plain PyTorch version at the main path's
+     shapes, with max-abs differences (K1, K2), code agreement (K3) and
+     both times (CUDA events, warm-up, median of several runs);
+  4. the main path through the entry points a user calls: ``AudioToken``
+     encode of WAV files (one of 90 s, in 30 s chunks), then
+     ``AcousticEncoder`` at 8 and 32 x 30 s of int16 PCM, with real-time
+     factors; every kernel must have launched during this phase;
+  5. the golden gate: ``tests/goldens/battery_acoustic.npz`` (4 weight
+     seeds x 12 cases) and ``api_acoustic.npz`` under the acoustic contract
+     of ``scripts/verify_tpu_parity.py``.
+
+The line before the last is a JSON object describing each kernel; the last
+line is ``{"ok": true, "device": {...}}``.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "scripts"))
+
+import verify_tpu_parity as parity  # noqa: E402  (numpy-only at import)
+from golden_cases import WEIGHT_SEEDS, api_clips, battery  # noqa: E402
+
+from audiotoken_tpu_torch import AudioToken, Tokenizers  # noqa: E402
+from audiotoken_tpu_torch.encoders import AcousticEncoder  # noqa: E402
+from audiotoken_tpu_torch.io.wavfile import write_wav  # noqa: E402
+from audiotoken_tpu_torch.ops import _build  # noqa: E402
+from audiotoken_tpu_torch.ops.lstm import lstm_layer, lstm_layer_plain  # noqa: E402
+from audiotoken_tpu_torch.ops.rvq import rvq_encode, rvq_encode_plain  # noqa: E402
+from audiotoken_tpu_torch.ops.seanet_front import seanet_front, seanet_front_plain  # noqa: E402
+from audiotoken_tpu_torch.runtime.precision import get_policy  # noqa: E402
+
+SR = 24_000
+KERNEL_ATOL = 1e-4  # K1, K2: kernel vs plain, both IEEE f32, other sum order
+RVQ_AGREEMENT = 0.999  # K3: late-codebook near-ties may flip (RVQ contract)
+KERNELS = (seanet_front, lstm_layer, rvq_encode)
+
+
+def say(*args):
+    print(*args, flush=True)
+
+
+def cuda_ms(fn, warmup=2, reps=5):
+    """Median device time of ``fn`` in ms (CUDA events around each call)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase1_device():
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: this check runs on an NVIDIA GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    say(smi)  # the card's name and power limit, as nvidia-smi gives them
+    say(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+
+
+def phase2_build():
+    t0 = time.perf_counter()
+    _build.library()
+    say(f"[2] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    for line in _build.build_log().splitlines():
+        if "registers" in line or "spill" in line or "build seconds" in line:
+            say(f"[2]   {line.strip()}")
+
+
+def phase3_kernels(dev):
+    """Kernel vs plain version at the main path's shapes (8 x 30 s)."""
+    enc = AcousticEncoder(weights="random", seed=0, device=dev)
+    front_w = enc.seanet.front_weights()
+    rng = np.random.default_rng(0)
+    t = np.arange(30 * SR) / SR
+    audio = np.stack([
+        0.3 * np.sin(2 * np.pi * (110 + 40 * b) * t) * (0.6 + 0.4 * np.sin(2 * np.pi * 3 * t))
+        + 0.03 * rng.standard_normal(t.shape)
+        for b in range(8)
+    ]).astype(np.float32)
+    x = torch.from_numpy(audio).to(dev)
+    res = {}
+
+    out = seanet_front(x, *front_w)
+    ref = seanet_front_plain(x, *front_w)
+    err = (out - ref).abs().max().item()
+    del out, ref
+    ms = cuda_ms(lambda: seanet_front(x, *front_w))
+    plain_ms = cuda_ms(lambda: seanet_front_plain(x, *front_w))
+    say(f"[3] K1 seanet_front [8, 720000]: max|kernel-plain| {err:.3e}  "
+        f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
+    if not err <= KERNEL_ATOL:
+        raise AssertionError(f"K1 differs from its plain version by {err}")
+    res["seanet_front"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+    # K2: both layers of the encoder's LSTM at B=8, T'=2250, H=512; each
+    # layer's kernel and plain version get the same xi.
+    h = torch.from_numpy(rng.standard_normal((8, 2250, 512)).astype(np.float32)).to(dev)
+    err, ms, plain_ms = 0.0, 0.0, 0.0
+    for layer in enc.seanet.lstm:
+        xi = torch.matmul(h, layer.wih.t()) + (layer.bih + layer.bhh)
+        out = lstm_layer(xi, layer.whh)
+        ref = lstm_layer_plain(xi, layer.whh)
+        err = max(err, (out - ref).abs().max().item())
+        ms += cuda_ms(lambda: lstm_layer(xi, layer.whh))
+        plain_ms += cuda_ms(lambda: lstm_layer_plain(xi, layer.whh), warmup=1, reps=3)
+        h = out
+    say(f"[3] K2 lstm 2 layers [8, 2250, 512]: max|kernel-plain| {err:.3e}  "
+        f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
+    if not err <= KERNEL_ATOL:
+        raise AssertionError(f"K2 differs from its plain version by {err}")
+    res["lstm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+    # K3 on the latents of real SEANet output for the same audio
+    with torch.inference_mode():
+        z = enc.seanet(x).float().contiguous()
+    cb = enc.quantizer.codebooks
+    out = rvq_encode(cb, z, 16)
+    ref = rvq_encode_plain(cb, z, 16)
+    agree = (out == ref).float().mean().item()
+    recon = lambda c: sum(cb[k][c[:, k]] for k in range(16))  # noqa: E731
+    err = (recon(out.long()) - recon(ref.long())).abs().max().item()
+    ms = cuda_ms(lambda: rvq_encode(cb, z, 16))
+    plain_ms = cuda_ms(lambda: rvq_encode_plain(cb, z, 16))
+    say(f"[3] K3 rvq 16 x 1024 x 128 over [8, 2250, 128]: code agreement {agree:.6f}  "
+        f"max|recon diff| {err:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
+    if not agree >= RVQ_AGREEMENT:
+        raise AssertionError(f"K3 codes agree with its plain version at {agree}")
+    res["rvq"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return res
+
+
+def _check_codes(codes, shape):
+    if codes.shape != shape or codes.dtype != np.int16:
+        raise AssertionError(f"codes {codes.shape} {codes.dtype}, expected {shape} int16")
+    if codes.min() < 0 or codes.max() >= 1024:
+        raise AssertionError(f"codes outside [0, 1024): {codes.min()}..{codes.max()}")
+
+
+def phase4_main_path(dev, tmp):
+    """The user-facing entry points; returns each kernel's launch count."""
+    rng = np.random.default_rng(7)
+    clip90 = (0.2 * rng.standard_normal(90 * SR)).astype(np.float32)
+    clip7 = (0.2 * rng.standard_normal(7 * SR + 123)).astype(np.float32)
+    pcm30 = (rng.standard_normal((32, 30 * SR)) * 3000).clip(-32768, 32767).astype(np.int16)
+    for name, clip in (("clip90.wav", clip90), ("clip7.wav", clip7)):
+        write_wav(os.path.join(tmp, name), clip[None], SR)
+    at = AudioToken(Tokenizers.acoustic, num_codebooks=16, weights="random", device=dev)
+    at.load_encoder()
+    enc = at.encoder
+    enc(pcm30[:8])  # warm up cuDNN's algorithm choice and the allocator
+    torch.cuda.synchronize()
+
+    for k in KERNELS:
+        k.launches = 0
+    toks = at.encode(os.path.join(tmp, "clip7.wav"))
+    _check_codes(toks, (1, 16, -(-(7 * SR + 123) // 320)))
+    toks = at.encode(os.path.join(tmp, "clip90.wav"), chunk_size=30)
+    _check_codes(toks, (1, 16, 6750))
+    for B in (8, 32):
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            codes = enc(pcm30[:B])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            _check_codes(codes, (B, 16, 2250))
+        wall = statistics.median(walls)
+        say(f"[4] AcousticEncoder B={B} x 30 s int16: median wall {wall * 1e3:.1f} ms "
+            f"(runs {', '.join(f'{w * 1e3:.1f}' for w in walls)}), RTFx {B * 30.0 / wall:.1f}")
+    counts = {k.__name__: k.launches for k in KERNELS}
+    say(f"[4] kernel launches during the main path: {counts}")
+    for name, n in counts.items():
+        if n < 1:
+            raise AssertionError(f"kernel {name} was not launched by the main path")
+    return counts
+
+
+def phase5_goldens(dev, tmp):
+    g = np.load(os.path.join(parity.GOLD, "battery_acoustic.npz"))
+    audio, _lengths, names = battery(SR)
+    failures = []
+    for seed in WEIGHT_SEEDS:
+        ids = AcousticEncoder(weights="random", seed=seed, device=dev)(audio)
+        ref = g[f"ids_s{seed}"]
+        per_case = (ids.reshape(len(names), -1) == ref.reshape(len(names), -1)).mean(axis=1)
+        for name, agree in zip(names, per_case):
+            thresh = parity.case_thresh("acoustic", name)
+            ok = agree >= thresh
+            say(f"[5] battery s{seed:<2d} {name:14s} agreement {agree:.6f} "
+                f"(>= {thresh}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"s{seed} {name} {agree:.6f}")
+
+    g = np.load(os.path.join(parity.GOLD, "api_acoustic.npz"))
+    at = AudioToken(Tokenizers.acoustic, num_codebooks=16, weights="random", device=dev)
+    at.load_encoder()
+    for name, wav in api_clips(SR, at.encoder.buckets).items():
+        if name == "multichunk_90s":
+            path = os.path.join(tmp, "api90.wav")
+            write_wav(path, (np.clip(wav, -1, 1) * 32767.0).astype(np.int16)[None], SR)
+            toks = at.encode(path, chunk_size=30.0)
+        else:
+            toks = at.encode(wav[None].astype(np.float32))
+        ref = g[f"tokens_{name}"]
+        agree = float((toks == ref).mean()) if toks.shape == ref.shape else 0.0
+        ok = agree >= parity.ACOUSTIC_THRESH
+        say(f"[5] api {name:14s} agreement {agree:.6f} (>= {parity.ACOUSTIC_THRESH}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"api {name} {agree:.6f}")
+    if failures:
+        raise AssertionError("golden gate failed: " + "; ".join(failures))
+
+
+def main():
+    phase1_device()
+    dev = torch.device("cuda", 0)
+    phase2_build()
+    with get_policy("highest").numerics():
+        res = phase3_kernels(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        counts = phase4_main_path(dev, tmp)
+        phase5_goldens(dev, tmp)
+    rows = [
+        ("seanet_front", "seanet_front", "audiotoken_tpu_torch/csrc/seanet_front.cu",
+         "audiotoken_tpu/ops/seanet_pallas.py:124"),
+        ("lstm", "lstm_layer", "audiotoken_tpu_torch/csrc/lstm.cu",
+         "audiotoken_tpu/ops/lstm_pallas.py:75"),
+        ("rvq", "rvq_encode", "audiotoken_tpu_torch/csrc/rvq.cu",
+         "audiotoken_tpu/ops/rvq_pallas.py:74"),
+    ]
+    kernels = [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": counts[fn], **res[name]}
+        for name, fn, src, rep in rows
+    ]
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,130 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU and skips without one. On a machine
+with a card and without JAX, run them without the suite's conftest (which
+imports JAX):
+
+    python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
+
+``chip_smoke.py`` repeats these comparisons at the main path's shapes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from audiotoken_tpu_torch.encoders import AcousticEncoder
+from audiotoken_tpu_torch.nn.rvq import RVQConfig, init_codebooks
+from audiotoken_tpu_torch.nn.seanet import SeanetConfig, SeanetEncoder, init_encoder_params
+from audiotoken_tpu_torch.ops.lstm import lstm_layer, lstm_layer_plain
+from audiotoken_tpu_torch.ops.rvq import rvq_encode, rvq_encode_plain
+from audiotoken_tpu_torch.ops.seanet_front import seanet_front, seanet_front_plain
+from audiotoken_tpu_torch.runtime.precision import get_policy
+from audiotoken_tpu_torch.weights import acoustic_from_numpy
+
+pytestmark = pytest.mark.cuda
+
+# Kernel and plain version sum in different orders, both in IEEE f32.
+ATOL = 1e-4
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    with get_policy("highest").numerics():
+        yield torch.device("cuda")
+
+
+def _front_weights(dev, seed=0):
+    enc = SeanetEncoder()
+    state, _ = acoustic_from_numpy(
+        {"encoder": init_encoder_params(np.random.default_rng(seed), SeanetConfig()),
+         "codebooks": np.zeros((1, 1, 128), np.float32)}
+    )
+    enc.load_state_dict(state)
+    return [w.to(dev) for w in enc.front_weights()]
+
+
+@pytest.mark.parametrize("T", [1, 5, 320, 4096 + 123, 30000])
+def test_seanet_front_matches_plain(dev, T):
+    w = _front_weights(dev)
+    x = torch.from_numpy(
+        (np.random.default_rng(T).standard_normal((3, T)) * 0.3).astype(np.float32)
+    ).to(dev)
+    before = seanet_front.launches
+    out = seanet_front(x, *w)
+    torch.cuda.synchronize()
+    assert seanet_front.launches == before + 1
+    ref = seanet_front_plain(x, *w)
+    assert out.shape == ref.shape == (3, 32, T)
+    assert torch.allclose(out, ref, atol=ATOL, rtol=0), (out - ref).abs().max().item()
+
+
+def test_seanet_front_takes_unaligned_rows(dev):
+    """A sub-batch of rows of odd length starts at any 4-byte offset."""
+    w = _front_weights(dev)
+    T = 30001
+    flat = torch.from_numpy(
+        (np.random.default_rng(2).standard_normal(3 * T) * 0.3).astype(np.float32)
+    ).to(dev)
+    x = flat.view(3, T)[1:]
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    out = seanet_front(x, *w)
+    torch.cuda.synchronize()
+    ref = seanet_front_plain(x, *w)
+    assert torch.allclose(out, ref, atol=ATOL, rtol=0), (out - ref).abs().max().item()
+
+
+@pytest.mark.parametrize("B,T", [(1, 40), (3, 17), (9, 33)])
+def test_lstm_matches_plain(dev, B, T):
+    H = 512
+    rng = np.random.default_rng(B * 1000 + H)
+    xi = torch.from_numpy(rng.standard_normal((B, T, 4 * H)).astype(np.float32)).to(dev)
+    s = 1.0 / np.sqrt(H)
+    whh = torch.from_numpy(rng.uniform(-s, s, (4 * H, H)).astype(np.float32)).to(dev)
+    out = lstm_layer(xi, whh)
+    torch.cuda.synchronize()
+    ref = lstm_layer_plain(xi, whh)
+    assert torch.allclose(out, ref, atol=ATOL, rtol=0), (out - ref).abs().max().item()
+
+
+def test_lstm_refuses_other_sizes(dev):
+    xi = torch.zeros((2, 5, 256), device=dev)
+    with pytest.raises(ValueError, match="shape"):
+        lstm_layer(xi, torch.zeros((256, 64), device=dev))
+
+
+@pytest.mark.parametrize("num_q", [2, 16, 32])
+def test_rvq_matches_plain(dev, num_q):
+    cb = torch.from_numpy(init_codebooks(np.random.default_rng(0), RVQConfig())).to(dev)
+    x = torch.from_numpy(
+        np.random.default_rng(num_q).standard_normal((2, 301, 128)).astype(np.float32)
+    ).to(dev)
+    out = rvq_encode(cb, x, num_q)
+    torch.cuda.synchronize()
+    ref = rvq_encode_plain(cb, x, num_q)
+    assert out.shape == ref.shape == (2, num_q, 301)
+    assert (out == ref).float().mean().item() >= 0.999
+
+
+def test_rvq_tie_takes_first_index(dev):
+    rng = np.random.default_rng(3)
+    cb = rng.standard_normal((2, 1024, 128)).astype(np.float32)
+    cb[0, 700] = cb[0, 5]  # an exact tie; every row whose nearest is 5 ties with 700
+    x = cb[0, [5, 700, 5]][None] + 0.01 * rng.standard_normal((1, 3, 128)).astype(np.float32)
+    codes = rvq_encode(torch.from_numpy(cb).to(dev), torch.from_numpy(x).to(dev), 2)
+    assert codes[0, 0].tolist() == [5, 5, 5]
+
+
+def test_encoder_runs_the_kernels(dev):
+    counts = (seanet_front.launches, lstm_layer.launches, rvq_encode.launches)
+    enc = AcousticEncoder(weights="random", seed=0, device=dev)
+    x = (np.random.default_rng(1).standard_normal((2, 30000)) * 0.3).astype(np.float32)
+    codes = enc(x)
+    assert codes.shape == (2, 16, 94) and codes.dtype == np.int16
+    assert seanet_front.launches > counts[0]
+    assert lstm_layer.launches > counts[1]
+    assert rvq_encode.launches > counts[2]
+    ref = AcousticEncoder(weights="random", seed=0, device="cpu")(x)
+    assert (codes == ref).mean() >= 0.99

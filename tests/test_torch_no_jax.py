@@ -1,0 +1,51 @@
+"""The port imports neither JAX nor the JAX package.
+
+A static check over the sources: this environment imports JAX into every
+interpreter (the suite's conftest does), so ``sys.modules`` cannot tell.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "audiotoken_tpu"}
+SOURCES = sorted((ROOT / "audiotoken_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    """Module names imported by ``import``/``from`` statements, and string
+    arguments of ``__import__``/``importlib.import_module`` calls."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+            if name in ("__import__", "import_module"):
+                yield from (a.value for a in node.args
+                            if isinstance(a, ast.Constant) and isinstance(a.value, str))
+
+
+def test_sources_found():
+    assert len(SOURCES) > 10
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_checker_sees_imports(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text(
+        "import jax.numpy as jnp\nfrom audiotoken_tpu.api import AudioToken\n"
+        "import importlib\nimportlib.import_module('jaxlib')\n"
+        "from audiotoken_tpu_torch import api\n"
+    )
+    mods = [m.split(".")[0] for m in _imported_modules(src)]
+    assert [m for m in mods if m in FORBIDDEN] == ["jax", "audiotoken_tpu", "jaxlib"]
