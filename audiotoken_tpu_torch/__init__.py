@@ -3,7 +3,10 @@
 Runs on an NVIDIA Hopper GPU (H100), with hand-written CUDA kernels where
 the JAX package had Pallas kernels and plain PyTorch elsewhere. Ported so
 far: acoustic encode (SEANet encoder + residual VQ), through
-``AudioToken(Tokenizers.acoustic, ...).encode`` and ``AcousticEncoder``.
+``AudioToken(Tokenizers.acoustic, ...).encode`` and ``AcousticEncoder``,
+and semantic_m encode (fbank + w2v-BERT conformer + VQ), through
+``AudioToken(Tokenizers.semantic_m, ...).encode`` and
+``Wav2VecBertEncoder``.
 
 Imports ``torch`` and ``numpy``, never JAX. The device is explicit: the
 default is CUDA, and ``device="cpu"`` runs every kernel's plain PyTorch
@@ -13,7 +16,7 @@ at first use on a CUDA tensor (``ops/_build.py``).
 
 from .api import AudioToken
 from .configs import Tokenizers
-from .encoders import AcousticEncoder
+from .encoders import AcousticEncoder, Wav2VecBertEncoder
 from .io.audio import read_audio
 
 __version__ = "0.1.0"
@@ -22,6 +25,7 @@ __all__ = [
     "AudioToken",
     "AcousticEncoder",
     "Tokenizers",
+    "Wav2VecBertEncoder",
     "read_audio",
     "__version__",
 ]

@@ -1,9 +1,10 @@
-"""AudioToken facade, acoustic encode only.
+"""AudioToken facade, encode side of acoustic and semantic_m.
 
 Counterpart of ``audiotoken_tpu/api.py:AudioToken``: same constructor
 arguments (plus an explicit torch ``device``, default CUDA) and the same
-``encode`` surface, returning numpy int16 tokens [1, K, T]. What later
-slices of the port bring raises ``NotImplementedError`` until then.
+``encode`` surface, returning numpy int16 tokens [1, K, T] (K = 1 for
+semantic_m). What later slices of the port bring raises
+``NotImplementedError`` until then.
 """
 
 import os
@@ -12,24 +13,31 @@ from typing import Optional, Union
 
 import numpy as np
 
-from .configs import AcousticEncoderConfig, Tokenizers, num_codebooks_to_bandwidth
-from .encoders import AcousticEncoder, resolve_device
+from .configs import (
+    AcousticEncoderConfig,
+    Tokenizers,
+    Wav2VecBertConfig,
+    num_codebooks_to_bandwidth,
+)
+from .encoders import AcousticEncoder, Wav2VecBertEncoder, resolve_device
 
 ArrayLike = Union[np.ndarray, "os.PathLike[str]", Path, str]
 
 
 class AudioToken:
-    """Tokenize audio to discrete acoustic ids.
+    """Tokenize audio to discrete ids.
 
     Args:
-        tokenizer: :class:`Tokenizers`; only ``acoustic`` is ported so far.
+        tokenizer: :class:`Tokenizers`; ``acoustic`` and ``semantic_m`` are
+            ported so far.
         device: torch device, default ``"cuda"`` (which raises when no GPU
             is present); ``"cpu"`` runs the kernels' plain versions.
         num_codebooks: acoustic codebook count in {2, 4, 8, 16}.
         weights: ``"random"`` (seeded random init) or a directory holding a
-            converted ``acoustic.npz``.
+            converted ``acoustic.npz`` (``w2vbert.npz`` + ``w2vbert_vq.npz``
+            for semantic_m).
         precision: ``"highest"`` (IEEE f32, token parity), ``"high"`` or
-            ``"default"`` (TF32 allowed), ``"bfloat16"``.
+            ``"default"`` (TF32 allowed), ``"bfloat16"`` (acoustic only).
     """
 
     def __init__(
@@ -42,10 +50,9 @@ class AudioToken:
         seed: int = 0,
     ):
         self.tokenizer_name = Tokenizers(tokenizer)
-        if self.tokenizer_name != Tokenizers.acoustic:
+        if self.tokenizer_name == Tokenizers.semantic_s:
             raise NotImplementedError(
-                f"{self.tokenizer_name.value}: the semantic tokenizers come with "
-                "later slices of the port (semantic_s, then semantic_m)"
+                "semantic_s: HuBERT encode comes with later slices of the port"
             )
         if num_codebooks not in (2, 4, 8, 16):
             raise ValueError(f"num_codebooks must be one of [2, 4, 8, 16], got {num_codebooks}")
@@ -54,15 +61,19 @@ class AudioToken:
         self.weights = weights
         self.precision = precision
         self.seed = seed
-        self.model_config = AcousticEncoderConfig(
-            bandwidth=num_codebooks_to_bandwidth(num_codebooks)
-        )
+        if self.tokenizer_name == Tokenizers.acoustic:
+            self.model_config = AcousticEncoderConfig(
+                bandwidth=num_codebooks_to_bandwidth(num_codebooks)
+            )
+        else:
+            self.model_config = Wav2VecBertConfig()
         self.model_sample_rate = self.model_config.model_sample_rate
         self.encoder = None
 
     def load_encoder(self):
         if self.encoder is None:
-            self.encoder = AcousticEncoder(
+            acoustic = self.tokenizer_name == Tokenizers.acoustic
+            self.encoder = (AcousticEncoder if acoustic else Wav2VecBertEncoder)(
                 config=self.model_config,
                 weights=self.weights,
                 precision=self.precision,
@@ -92,14 +103,14 @@ class AudioToken:
         if isinstance(audio, np.ndarray):
             if audio.ndim != 2 or audio.shape[0] != 1:
                 raise ValueError(f"audio must be [1, T] mono, got {audio.shape}")
-            return self.encoder(audio)
+            return self._encode_single(audio)
         if not isinstance(audio, (os.PathLike, Path, str)):
             raise ValueError(f"Unsupported input type {type(audio)}")
 
         from .io.audio import process_audio_chunks, read_audio
 
         if chunk_size is None:
-            return self.encoder(read_audio(audio, self.model_sample_rate))
+            return self._encode_single(read_audio(audio, self.model_sample_rate))
 
         sr = self.model_sample_rate
         hop = sr // self.model_config.model_token_rate
@@ -108,11 +119,15 @@ class AudioToken:
         out = []
         for chunk, _name in process_audio_chunks(str(audio), None, sr, chunk_size):
             ext = np.concatenate([carry, chunk], axis=-1)
-            toks = self.encoder(ext)
+            toks = self._encode_single(ext)
             out.append(toks[:, :, carry.shape[-1] // hop :])
             if carry_len:
                 carry = ext[:, -carry_len:]
         return np.concatenate(out, axis=-1)
+
+    def _encode_single(self, audio: np.ndarray) -> np.ndarray:
+        # all-valid input, passed as full lengths
+        return self.encoder(audio, np.full(audio.shape[0], audio.shape[-1], np.int32))
 
     def encode_batch_files(self, *args, **kwargs):
         raise NotImplementedError(
@@ -120,4 +135,4 @@ class AudioToken:
         )
 
     def decode(self, *args, **kwargs):
-        raise NotImplementedError("decode: acoustic decode is the next slice of the port")
+        raise NotImplementedError("decode: the decoders come with later slices of the port")

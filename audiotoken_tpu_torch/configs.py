@@ -1,8 +1,9 @@
-"""Tokenizer registry and the acoustic encoder's configuration.
+"""Tokenizer registry and the encoders' configurations.
 
-Counterpart of ``audiotoken_tpu/configs.py``, acoustic part only: the
-semantic tokenizers are named here so that :class:`Tokenizers` keeps its
-three members, but their configs arrive with their slices of the port.
+Counterpart of ``audiotoken_tpu/configs.py`` for the ported encoders
+(acoustic and semantic_m): semantic_s is named here so that
+:class:`Tokenizers` keeps its three members, but its config arrives with
+its slice of the port.
 """
 
 from dataclasses import dataclass
@@ -35,6 +36,19 @@ class AcousticEncoderConfig(EncoderConfig):
     model_token_rate: int = 75
     pad_token: Optional[int] = 0
     bandwidth: float = 12.0
+
+
+@dataclass(frozen=True)
+class Wav2VecBertConfig(EncoderConfig):
+    """Trimmed 21-layer w2v-BERT-2.0, layer 19 + 2048-entry VQ."""
+
+    model_id: str = "cmeraki/audiotoken/w2vbert2_l21"
+    model_sample_rate: int = 16_000
+    model_token_rate: int = 50
+    pad_token: Optional[int] = 0
+    output_layer: int = 19
+    num_clusters: int = 2048
+    hidden_dim: int = 1024
 
 
 # Bandwidth (kbps) <-> codebook ladder of EnCodec 24 kHz.

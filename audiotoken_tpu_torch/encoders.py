@@ -1,7 +1,8 @@
-"""The acoustic encoder: host <-> device boundary, bucketing, dtype policy.
+"""The encoders: host <-> device boundary, bucketing, dtype policy.
 
-Counterpart of ``audiotoken_tpu/encoders.py:AcousticEncoder``. Outputs are
-numpy int16 codes [B, K, T] at 75 frames per second.
+Counterpart of ``audiotoken_tpu/encoders.py``: ``AcousticEncoder`` gives
+numpy int16 codes [B, K, T] at 75 frames per second, ``Wav2VecBertEncoder``
+(semantic_m) int16 ids [B, 1, T] at 50 per second.
 """
 
 import math
@@ -9,12 +10,22 @@ import math
 import numpy as np
 import torch
 
-from .configs import AcousticEncoderConfig
+import torch.nn.functional as F
+
+from .configs import AcousticEncoderConfig, Wav2VecBertConfig
+from .nn.conformer import W2VBertConfig, W2VBertFeatures
+from .nn.fbank import FbankConfig, fbank_features
 from .nn.rvq import ResidualVQ, RVQConfig
 from .nn.seanet import SeanetConfig, SeanetEncoder
+from .ops.lookup import nearest_centroid
 from .runtime.bucketing import default_buckets, pad_to_bucket
 from .runtime.precision import get_policy
-from .weights import acoustic_from_numpy, get_acoustic_params
+from .weights import (
+    acoustic_from_numpy,
+    get_acoustic_params,
+    get_w2vbert_params,
+    w2vbert_from_numpy,
+)
 
 
 def resolve_device(device) -> torch.device:
@@ -40,12 +51,39 @@ def _require_min_samples(n: int, min_samples: int, sample_rate: int, who: str):
         )
 
 
-def _run_subbatched(forward, x: torch.Tensor, max_b: int) -> torch.Tensor:
-    """``forward(x)`` in serial sub-batches of at most ``max_b`` rows, joined
-    on the device. Every row is encoded independently of the others."""
-    if x.shape[0] <= max_b:
-        return forward(x)
-    return torch.cat([forward(x[i : i + max_b]) for i in range(0, x.shape[0], max_b)])
+def _run_subbatched(forward, max_b: int, *xs: torch.Tensor) -> torch.Tensor:
+    """``forward(*xs)`` in serial sub-batches of at most ``max_b`` rows,
+    joined on the device. Every row is encoded independently of the others."""
+    B = xs[0].shape[0]
+    if B <= max_b:
+        return forward(*xs)
+    return torch.cat([forward(*(x[i : i + max_b] for x in xs)) for i in range(0, B, max_b)])
+
+
+def _mask_to_lengths(attention_mask, audio_shape) -> np.ndarray:
+    """Host side: an attention mask as [B] int32 lengths where it can be.
+
+    None -> full lengths; [B] lengths pass through; a [B, T] mask becomes
+    lengths only when it is a binary valid-prefix mask, and is returned
+    whole (f32) otherwise."""
+    if attention_mask is None:
+        return np.full(audio_shape[0], audio_shape[-1], np.int32)
+    m = np.asarray(attention_mask)
+    if m.ndim == 1:
+        return m.astype(np.int32)
+    m = m.astype(np.float32, copy=False)
+    binary = bool(((m == 0.0) | (m == 1.0)).all())
+    if binary and bool(np.all(m[:, :-1] >= m[:, 1:])):
+        return np.count_nonzero(m, axis=-1).astype(np.int32)
+    return m
+
+
+def _expand_mask(mask: torch.Tensor, T: int) -> torch.Tensor:
+    """Device side: [B] lengths -> [B, T] f32 prefix mask; a [B, T] mask
+    passes through."""
+    if mask.ndim == 1:
+        return (torch.arange(T, device=mask.device)[None, :] < mask[:, None]).float()
+    return mask
 
 
 class AcousticEncoder:
@@ -101,5 +139,115 @@ class AcousticEncoder:
         _require_min_samples(n, 1, self.config.model_sample_rate, "AcousticEncoder")
         padded = pad_to_bucket(audio, self.buckets, self.config.pad_token or 0)
         x = torch.from_numpy(np.ascontiguousarray(padded)).to(self.device)
-        codes = _run_subbatched(self._forward, x, self.max_device_batch)
+        codes = _run_subbatched(self._forward, self.max_device_batch, x)
         return codes[:, :, : math.ceil(n / self.hop)].cpu().numpy()
+
+
+class Wav2VecBertEncoder:
+    """Fbank -> conformer layer 19 (of 21) -> VQ-2048 ids [B, 1, T] int16 at
+    50 per second (semantic_m).
+
+    Takes float32 or raw int16 PCM at 16 kHz; int16 is scaled by the exact
+    1/2^15 on the device, in ``__call__`` as in ``dispatch``. On a CUDA
+    device the attention of every block is kernel K4; on the CPU it is K4's
+    plain version.
+    """
+
+    def __init__(
+        self,
+        config: Wav2VecBertConfig = Wav2VecBertConfig(),
+        weights: str = "artifacts",
+        precision: str = "highest",
+        seed: int = 0,
+        device="cuda",
+        quantize: bool = True,
+    ):
+        if precision == "mixed":
+            raise NotImplementedError(
+                'precision="mixed": its stage map was measured on TPU bf16x3 '
+                "numerics and is re-derived on Hopper in a later PR; use "
+                '"highest"'
+            )
+        if precision == "bfloat16":
+            raise NotImplementedError(
+                'precision="bfloat16": semantic_m runs in f32 until a bf16 '
+                'attention kernel is written; use "highest"'
+            )
+        self.device = resolve_device(device)
+        self.config = config
+        self.policy = get_policy(precision)
+        self.quantize = quantize
+        self.fbank_cfg = FbankConfig()
+        self.model_cfg = W2VBertConfig()
+
+        params, codebook = get_w2vbert_params(weights, seed, config)
+        state = w2vbert_from_numpy(params, config.output_layer)
+        del params
+        with torch.device("meta"):
+            model = W2VBertFeatures(self.model_cfg, config.output_layer)
+        model.load_state_dict(state, assign=True)
+        self.model = model.to(self.device).eval().requires_grad_(False)
+        self.codebook = torch.from_numpy(codebook).to(self.device)
+        self.buckets = default_buckets(config.model_sample_rate, 320)
+        # Larger batches run as sub-batches of this many rows: K4 keeps the
+        # attention's memory linear in T, so 32 x 30 s fits.
+        self.max_device_batch = 32
+        # one 50 Hz token = 2 fbank frames: frame_length + hop_length
+        # samples (560 = 35 ms)
+        self._min_samples = self.fbank_cfg.frame_length + self.fbank_cfg.hop_length
+
+    def _forward(self, audio: torch.Tensor, mask: torch.Tensor,
+                 pad_to_multiple_of: int, quantize: bool) -> torch.Tensor:
+        """[B, N] f32 or int16 and a [B] lengths or [B, N] mask on the
+        device -> ids [B, T'] int16, or features [B, T', 1024] f32."""
+        with torch.inference_mode(), self.policy.numerics():
+            mask = _expand_mask(mask, audio.shape[-1])
+            if audio.dtype == torch.int16:
+                # /2^15 is exact, so int16 input gives the f32 path's tokens
+                audio = audio.float() * (1.0 / 32768.0)
+            proc = fbank_features(audio, mask, self.fbank_cfg, pad_to_multiple_of)
+            feats = self.model(proc["input_features"], proc["attention_mask"])
+            if not quantize:
+                return feats
+            feats = F.layer_norm(feats, feats.shape[-1:], eps=1e-5)  # affine-free
+            return nearest_centroid(feats, self.codebook).to(torch.int16)
+
+    def _run(self, input_batch, attention_mask, pad_to_multiple_of: int, quantize: bool):
+        audio = np.asarray(input_batch)
+        if audio.dtype != np.int16:
+            audio = audio.astype(np.float32)
+        n = audio.shape[-1]
+        _require_min_samples(n, self._min_samples, self.config.model_sample_rate,
+                             "Wav2VecBertEncoder")
+        padded = pad_to_bucket(audio, self.buckets, self.config.pad_token or 0)
+        mask = _mask_to_lengths(attention_mask, audio.shape)
+        if mask.ndim == 2:
+            mask = np.pad(mask, ((0, 0), (0, padded.shape[-1] - mask.shape[-1])))
+        # 50 tokens/s: one token per 2 fbank frames (hop 160 * stride 2)
+        n_frames = (1 + (n - self.fbank_cfg.frame_length) // self.fbank_cfg.hop_length) // 2
+        x = torch.from_numpy(np.ascontiguousarray(padded)).to(self.device)
+        m = torch.from_numpy(np.ascontiguousarray(mask)).to(self.device)
+        out = _run_subbatched(
+            lambda a, mk: self._forward(a, mk, pad_to_multiple_of, quantize),
+            self.max_device_batch, x, m,
+        )
+        return out, n_frames
+
+    def dispatch(self, input_batch: np.ndarray, attention_mask=None,
+                 pad_to_multiple_of: int = 2):
+        """Encode without waiting for the device -> (device ids [B, T'],
+        n_valid_frames).
+
+        ``attention_mask`` may be [B] int lengths or a [B, T] mask: a
+        valid-prefix mask is sent as lengths, any other mask whole."""
+        return self._run(input_batch, attention_mask, pad_to_multiple_of, quantize=True)
+
+    def __call__(self, input_batch: np.ndarray, attention_mask=None,
+                 pad_to_multiple_of: int = 2) -> np.ndarray:
+        """[B, T] float32 (or int16 PCM) -> ids [B, 1, T'] int16, or, with
+        ``quantize=False``, conformer features [B, T', 1024] float32."""
+        out, n_frames = self._run(input_batch, attention_mask, pad_to_multiple_of,
+                                  quantize=self.quantize)
+        if not self.quantize:
+            return out[:, :n_frames].cpu().numpy()
+        return out[:, None, :n_frames].cpu().numpy()

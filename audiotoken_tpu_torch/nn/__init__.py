@@ -1,1 +1,2 @@
-"""Models as PyTorch modules: the SEANet encoder and the residual VQ."""
+"""Models as PyTorch modules: the SEANet encoder, the residual VQ, the
+fbank front-end and the w2v-BERT conformer."""

@@ -1,0 +1,223 @@
+"""wav2vec2-BERT 2.0 conformer encoder (trimmed 21-layer variant).
+
+Counterpart of ``audiotoken_tpu/nn/conformer.py``: 160-dim stacked-fbank
+input, feature projection 160 -> 1024, then conformer blocks (half-step
+FFN, self-attention with the relative_key bias of left 64 / right 8,
+causal depthwise conv of kernel 31, half-step FFN, final LayerNorm). Only
+``output_layer`` blocks are built and run.
+
+The linears are cuBLAS matmuls and the depthwise conv is ``F.conv1d`` with
+``groups=H``; attention is kernel K4 (``ops/flash_attention.py``), whose
+plain version runs for CPU tensors. The numpy initialiser makes the same
+draws, in the same order, as the JAX package's, so ``weights="random"``
+gives both packages bit-identical parameters.
+"""
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.flash_attention import flash_attention_relkey
+
+
+@dataclass(frozen=True)
+class W2VBertConfig:
+    hidden_size: int = 1024
+    num_hidden_layers: int = 21  # trimmed checkpoint
+    num_attention_heads: int = 16
+    intermediate_size: int = 4096
+    feature_projection_input_dim: int = 160
+    left_max_position_embeddings: int = 64
+    right_max_position_embeddings: int = 8
+    conv_depthwise_kernel_size: int = 31
+    layer_norm_eps: float = 1e-5
+
+    @property
+    def head_size(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def num_positions(self) -> int:
+        return self.left_max_position_embeddings + self.right_max_position_embeddings + 1
+
+
+# ---------------------------------------------------------------------------
+# Modules
+# ---------------------------------------------------------------------------
+
+
+class FeedForward(nn.Module):
+    def __init__(self, cfg: W2VBertConfig):
+        super().__init__()
+        self.inp = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.out = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.out(F.silu(self.inp(x)))
+
+
+class RelKeyAttention(nn.Module):
+    """Self-attention with the relative_key position bias."""
+
+    def __init__(self, cfg: W2VBertConfig):
+        super().__init__()
+        H = cfg.hidden_size
+        self.cfg = cfg
+        self.q = nn.Linear(H, H)
+        self.k = nn.Linear(H, H)
+        self.v = nn.Linear(H, H)
+        self.out = nn.Linear(H, H)
+        self.distance_embedding = nn.Parameter(torch.zeros(cfg.num_positions, cfg.head_size))
+
+    def forward(self, x: torch.Tensor, frame_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        B, T, H = x.shape
+        nh, dh = self.cfg.num_attention_heads, self.cfg.head_size
+
+        def heads(t):  # [B, T, H] -> [B, nh, T, dh], contiguous for K4
+            return t.reshape(B, T, nh, dh).transpose(1, 2).contiguous()
+
+        a = flash_attention_relkey(
+            heads(self.q(x)), heads(self.k(x)), heads(self.v(x)),
+            self.distance_embedding, frame_mask,
+            left=self.cfg.left_max_position_embeddings,
+            right=self.cfg.right_max_position_embeddings,
+        )
+        return self.out(a.transpose(1, 2).reshape(B, T, H))
+
+
+class ConvModule(nn.Module):
+    """LN -> mask-zero -> pointwise(2H) -> GLU -> causal depthwise(K) ->
+    LN -> swish -> pointwise(H)."""
+
+    def __init__(self, cfg: W2VBertConfig):
+        super().__init__()
+        H, K = cfg.hidden_size, cfg.conv_depthwise_kernel_size
+        self.layer_norm = nn.LayerNorm(H, eps=cfg.layer_norm_eps)
+        self.pw1 = nn.Linear(H, 2 * H, bias=False)
+        self.dw_weight = nn.Parameter(torch.zeros(H, 1, K))  # [H, 1, K], F.conv1d layout
+        self.dw_layer_norm = nn.LayerNorm(H, eps=cfg.layer_norm_eps)
+        self.pw2 = nn.Linear(H, H, bias=False)
+
+    def forward(self, x: torch.Tensor, frame_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        h = self.layer_norm(x)
+        if frame_mask is not None:
+            h = h * frame_mask[:, :, None]
+        h = F.glu(self.pw1(h), dim=-1)
+        K = self.dw_weight.shape[-1]
+        h = F.conv1d(F.pad(h.transpose(1, 2), (K - 1, 0)), self.dw_weight,
+                     groups=h.shape[-1]).transpose(1, 2)
+        return self.pw2(F.silu(self.dw_layer_norm(h)))
+
+
+class ConformerBlock(nn.Module):
+    def __init__(self, cfg: W2VBertConfig):
+        super().__init__()
+        H, eps = cfg.hidden_size, cfg.layer_norm_eps
+        self.ffn1_layer_norm = nn.LayerNorm(H, eps=eps)
+        self.ffn1 = FeedForward(cfg)
+        self.self_attn_layer_norm = nn.LayerNorm(H, eps=eps)
+        self.attn = RelKeyAttention(cfg)
+        self.conv = ConvModule(cfg)
+        self.ffn2_layer_norm = nn.LayerNorm(H, eps=eps)
+        self.ffn2 = FeedForward(cfg)
+        self.final_layer_norm = nn.LayerNorm(H, eps=eps)
+
+    def forward(self, x: torch.Tensor, frame_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        x = self.ffn1(self.ffn1_layer_norm(x)) * 0.5 + x
+        x = self.attn(self.self_attn_layer_norm(x), frame_mask) + x
+        x = x + self.conv(x, frame_mask)
+        x = self.ffn2(self.ffn2_layer_norm(x)) * 0.5 + x
+        return self.final_layer_norm(x)
+
+
+class W2VBertFeatures(nn.Module):
+    """[B, T, 160] fbank (+ frame mask [B, T]) -> hidden_states[output_layer]
+    [B, T, hidden]; holds and runs exactly ``output_layer`` blocks."""
+
+    def __init__(self, cfg: W2VBertConfig = W2VBertConfig(), output_layer: int = 19):
+        super().__init__()
+        if not 1 <= output_layer <= cfg.num_hidden_layers:
+            raise ValueError(f"output_layer {output_layer} outside 1..{cfg.num_hidden_layers}")
+        self.cfg = cfg
+        self.fp_layer_norm = nn.LayerNorm(cfg.feature_projection_input_dim, eps=cfg.layer_norm_eps)
+        self.projection = nn.Linear(cfg.feature_projection_input_dim, cfg.hidden_size)
+        self.layers = nn.ModuleList(ConformerBlock(cfg) for _ in range(output_layer))
+
+    def forward(self, input_features: torch.Tensor,
+                attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        h = self.projection(self.fp_layer_norm(input_features))
+        frame_mask = None
+        if attention_mask is not None:
+            frame_mask = attention_mask.float().contiguous()
+            h = h * frame_mask[:, :, None]
+        for layer in self.layers:
+            h = layer(h, frame_mask)
+        return h
+
+
+# ---------------------------------------------------------------------------
+# Random init (numpy, JAX layout: linear kernels [in, out], dw_kernel [K, 1, H])
+# ---------------------------------------------------------------------------
+
+
+def _lin_init(rng, din, dout, bias=True):
+    std = float(np.sqrt(1.0 / din))
+    p = {"kernel": rng.uniform(-std, std, (din, dout)).astype(np.float32)}
+    p["bias"] = np.zeros((dout,), np.float32) if bias else None
+    return p
+
+
+def _ln_init(d):
+    return {"scale": np.ones((d,), np.float32), "bias": np.zeros((d,), np.float32)}
+
+
+def init_w2vbert_params(rng, cfg: W2VBertConfig = W2VBertConfig()):
+    """The JAX package's ``init_w2vbert_params`` tree, drawn in its order."""
+    H = cfg.hidden_size
+    params = {
+        "feature_projection": {
+            "layer_norm": _ln_init(cfg.feature_projection_input_dim),
+            "projection": _lin_init(rng, cfg.feature_projection_input_dim, H),
+        },
+        "layers": [],
+    }
+    for _ in range(cfg.num_hidden_layers):
+        params["layers"].append(
+            {
+                "ffn1_layer_norm": _ln_init(H),
+                "ffn1": {
+                    "in": _lin_init(rng, H, cfg.intermediate_size),
+                    "out": _lin_init(rng, cfg.intermediate_size, H),
+                },
+                "self_attn_layer_norm": _ln_init(H),
+                "attn": {
+                    "q": _lin_init(rng, H, H),
+                    "k": _lin_init(rng, H, H),
+                    "v": _lin_init(rng, H, H),
+                    "out": _lin_init(rng, H, H),
+                    "distance_embedding": (
+                        rng.standard_normal((cfg.num_positions, cfg.head_size)) * 0.02
+                    ).astype(np.float32),
+                },
+                "conv": {
+                    "layer_norm": _ln_init(H),
+                    "pw1": _lin_init(rng, H, 2 * H, bias=False),
+                    "dw_kernel": (
+                        rng.standard_normal((cfg.conv_depthwise_kernel_size, 1, H)) * 0.02
+                    ).astype(np.float32),
+                    "dw_layer_norm": _ln_init(H),
+                    "pw2": _lin_init(rng, H, H, bias=False),
+                },
+                "ffn2_layer_norm": _ln_init(H),
+                "ffn2": {
+                    "in": _lin_init(rng, H, cfg.intermediate_size),
+                    "out": _lin_init(rng, cfg.intermediate_size, H),
+                },
+                "final_layer_norm": _ln_init(H),
+            }
+        )
+    return params

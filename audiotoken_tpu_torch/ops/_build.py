@@ -37,6 +37,7 @@ SIGNATURES = {
     "seanet_front_f32": (_P, _P, _I, _I) + (_P,) * 8,
     "lstm_layer_f32": (_P, _P, _P, _I, _I),
     "rvq_encode_f32": (_P, _P, _P, _P, _I, _I, _I),
+    "flash_attention_relkey_f32": (_P,) * 6 + (_I,) * 5,
 }
 
 
@@ -94,14 +95,18 @@ def build_log() -> str:
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call the C entry point ``name`` (declared in :data:`SIGNATURES`) with
-    ``args`` (tensors for its pointers, Python ints for its ints) on
-    ``device``'s current stream; raise if the launch was refused."""
+    ``args`` (tensors, or None for a null pointer, for its pointers; Python
+    ints for its ints) on ``device``'s current stream; raise if the launch
+    was refused."""
     sig = SIGNATURES[name]
     if len(args) != len(sig):
         raise TypeError(f"{name}: {len(args)} arguments, expected {len(sig)}")
     cargs = []
     for a, ctype in zip(args, sig):
         if ctype is _P:
+            if a is None:
+                cargs.append(None)
+                continue
             if not isinstance(a, torch.Tensor):
                 raise TypeError(f"{name}: expected a tensor, got {type(a).__name__}")
             cargs.append(a.data_ptr())

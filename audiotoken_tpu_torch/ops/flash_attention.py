@@ -1,0 +1,76 @@
+"""K4: attention with the relative_key position bias and the padding bias.
+
+Counterpart of ``audiotoken_tpu/ops/flash_attention.py:flash_attention_relkey``
+(Pallas kernel ``_kernel``, and its 2-head-packed form, which computes the
+same function). The CUDA kernel is ``csrc/flash_attention.cu``: blockwise,
+with an online softmax, so no [T, T] scores reach device memory.
+:func:`flash_attention_relkey_plain` is the same function written the
+direct way, with full scores and a gather for the rel term.
+"""
+
+import torch
+
+from . import _build
+from .attention import padding_bias
+
+#: head size the kernel is compiled for (csrc/flash_attention.cu)
+KERNEL_DH = 64
+
+
+def flash_attention_relkey_plain(q, k, v, dist_embedding=None, frame_mask=None,
+                                 left: int = 64, right: int = 8):
+    """q, k, v [B, H, T, dh] f32; dist_embedding [left+right+1, dh] or None;
+    frame_mask [B, T] {0, 1} or None -> [B, H, T, dh] f32.
+
+    ``softmax((q k^T + rel) / sqrt(dh) + padding_bias) v`` with
+    ``rel[q, k] = (q E^T)[q, clamp(k - q + left, 0, P - 1)]``. ``None``
+    drops the rel term or the padding bias (the HuBERT form)."""
+    T, dh = q.shape[-2:]
+    s = torch.matmul(q, k.transpose(-1, -2))
+    if dist_embedding is not None:
+        P = dist_embedding.shape[0]
+        if P != left + right + 1:
+            raise ValueError(f"dist_embedding has {P} rows, expected left + right + 1")
+        pos = torch.matmul(q, dist_embedding.t())  # [B, H, T, P]
+        t = torch.arange(T, device=q.device)
+        idx = (t[None, :] - t[:, None] + left).clamp(0, P - 1)  # [T (q), T (k)]
+        s = s + pos[:, :, t[:, None], idx]
+    s = s * dh**-0.5
+    if frame_mask is not None:
+        s = s + padding_bias(frame_mask)
+    return torch.matmul(torch.softmax(s, dim=-1), v)
+
+
+def flash_attention_relkey(q, k, v, dist_embedding=None, frame_mask=None,
+                           left: int = 64, right: int = 8):
+    """The function of :func:`flash_attention_relkey_plain`. Launches K4 for
+    CUDA tensors (f32, contiguous, dh = 64) and runs the plain version for
+    CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_relkey_plain(q, k, v, dist_embedding, frame_mask, left, right)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_relkey: unsupported device {q.device}")
+    B, H, T, dh = q.shape
+    if dh != KERNEL_DH:
+        raise ValueError(f"flash_attention_relkey: head size {dh}, the kernel takes {KERNEL_DH}")
+    if left < 0 or right < 0:
+        raise ValueError(f"flash_attention_relkey: left {left}, right {right} must be >= 0")
+    dev = q.device
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.check_tensor(t, name, (B, H, T, dh), torch.float32, dev, vector_loads=True)
+    P = 0
+    if dist_embedding is not None:
+        P = left + right + 1
+        _build.check_tensor(dist_embedding, "dist_embedding", (P, dh), torch.float32, dev)
+    if frame_mask is not None:
+        _build.check_tensor(frame_mask, "frame_mask", (B, T), torch.float32, dev)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    _build.launch("flash_attention_relkey_f32", dev, q, k, v, dist_embedding, frame_mask,
+                  out, B * H, H, T, P, left)
+    flash_attention_relkey.launches += 1
+    return out
+
+
+flash_attention_relkey.launches = 0

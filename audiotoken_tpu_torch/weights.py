@@ -1,8 +1,9 @@
-"""Acoustic model parameters: a converted store, or seeded random ones.
+"""Model parameters: a converted store, or seeded random ones.
 
-``get_acoustic_params`` returns the JAX package's parameter tree (numpy,
-conv kernels [K, C_in, C_out]); ``acoustic_from_numpy`` is the bridge from
-that tree to the port's ``SeanetEncoder`` state and codebook tensor.
+``get_acoustic_params`` and ``get_w2vbert_params`` return the JAX
+package's parameter trees (numpy, conv kernels [K, C_in, C_out], linear
+kernels [in, out]); ``acoustic_from_numpy`` and ``w2vbert_from_numpy`` are
+the bridges from those trees to the port's modules.
 """
 
 import os
@@ -73,3 +74,74 @@ def acoustic_from_numpy(tree):
             state[f"lstm.{li}.{name}"] = _t(layer[name])
     conv("conv_out", enc["conv_out"])
     return state, _t(tree["codebooks"])
+
+
+def get_w2vbert_params(weights: str = "artifacts", seed: int = 0, config=None):
+    """(conformer params, VQ codebook [num_clusters, hidden_dim]) for
+    semantic_m.
+
+    ``weights`` is a directory holding ``w2vbert.npz`` and
+    ``w2vbert_vq.npz`` (the converted store), or ``"random"``: seeded numpy
+    draws of the params and then the codebook from one generator,
+    bit-identical to ``audiotoken_tpu.weights.get_w2vbert_params``.
+    """
+    from .configs import Wav2VecBertConfig
+    from .nn.conformer import W2VBertConfig, init_w2vbert_params
+
+    config = config or Wav2VecBertConfig()
+    if weights == "artifacts":
+        raise NotImplementedError(
+            'weights="artifacts" needs the checkpoint converters, which come '
+            "with a later slice of the port; convert with the JAX package's "
+            'converter and pass its output directory, or use weights="random"'
+        )
+    if weights == "random":
+        rng = np.random.default_rng(seed)
+        params = init_w2vbert_params(rng, W2VBertConfig())
+        codebook = rng.standard_normal((config.num_clusters, config.hidden_dim)).astype(np.float32)
+        return params, codebook
+    paths = [os.path.join(weights, f"{name}.npz") for name in ("w2vbert", "w2vbert_vq")]
+    if not all(os.path.exists(p) for p in paths):
+        raise FileNotFoundError(f"no w2vbert.npz + w2vbert_vq.npz under {weights}")
+    return load_params(paths[0]), load_params(paths[1])["codebook"]
+
+
+def w2vbert_from_numpy(tree, num_layers: int):
+    """JAX-layout conformer tree -> state dict of the port's
+    ``W2VBertFeatures`` with its first ``num_layers`` blocks.
+
+    Linear kernels [in, out] become [out, in]; the depthwise kernel
+    [K, 1, H] becomes [H, 1, K]; LayerNorm scale/bias become weight/bias.
+    """
+    state = {}
+
+    def linear(prefix, p):
+        state[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+        if p.get("bias") is not None:
+            state[f"{prefix}.bias"] = _t(p["bias"])
+
+    def layer_norm(prefix, p):
+        state[f"{prefix}.weight"] = _t(p["scale"])
+        state[f"{prefix}.bias"] = _t(p["bias"])
+
+    fp = tree["feature_projection"]
+    layer_norm("fp_layer_norm", fp["layer_norm"])
+    linear("projection", fp["projection"])
+    for i, p in enumerate(tree["layers"][:num_layers]):
+        pre = f"layers.{i}"
+        for name in ("ffn1_layer_norm", "self_attn_layer_norm", "ffn2_layer_norm",
+                     "final_layer_norm"):
+            layer_norm(f"{pre}.{name}", p[name])
+        for ffn in ("ffn1", "ffn2"):
+            linear(f"{pre}.{ffn}.inp", p[ffn]["in"])
+            linear(f"{pre}.{ffn}.out", p[ffn]["out"])
+        for name in ("q", "k", "v", "out"):
+            linear(f"{pre}.attn.{name}", p["attn"][name])
+        state[f"{pre}.attn.distance_embedding"] = _t(p["attn"]["distance_embedding"])
+        conv = p["conv"]
+        layer_norm(f"{pre}.conv.layer_norm", conv["layer_norm"])
+        linear(f"{pre}.conv.pw1", conv["pw1"])
+        state[f"{pre}.conv.dw_weight"] = _t(np.asarray(conv["dw_kernel"]).transpose(2, 1, 0))
+        layer_norm(f"{pre}.conv.dw_layer_norm", conv["dw_layer_norm"])
+        linear(f"{pre}.conv.pw2", conv["pw2"])
+    return state

@@ -15,7 +15,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
      factors; every kernel must have launched during this phase;
   5. the golden gate: ``tests/goldens/battery_acoustic.npz`` (4 weight
      seeds x 12 cases) and ``api_acoustic.npz`` under the acoustic contract
-     of ``scripts/verify_tpu_parity.py``.
+     of ``scripts/verify_tpu_parity.py``;
+  3b. K4 (rel-key flash attention) against its plain version at the
+     semantic_m shape [8, 16, 1500, 64] with a padding mask, and in its
+     no-rel form at [2, 12, 1500, 64];
+  4b. the semantic_m main path: ``AudioToken(Tokenizers.semantic_m)``
+     encode of WAV files (one of 90 s, in 30 s chunks), then
+     ``Wav2VecBertEncoder`` at 8 and 32 x 30 s of int16 PCM, with
+     real-time factors; K4 must launch 19 times per forward;
+  5b. the semantic_m golden gate: ``battery_semantic_m.npz`` (4 seeds x 12
+     cases) and ``api_semantic_m.npz`` under the semantic_m contract.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -39,18 +48,25 @@ import verify_tpu_parity as parity  # noqa: E402  (numpy-only at import)
 from golden_cases import WEIGHT_SEEDS, api_clips, battery  # noqa: E402
 
 from audiotoken_tpu_torch import AudioToken, Tokenizers  # noqa: E402
-from audiotoken_tpu_torch.encoders import AcousticEncoder  # noqa: E402
+from audiotoken_tpu_torch.encoders import AcousticEncoder, Wav2VecBertEncoder  # noqa: E402
 from audiotoken_tpu_torch.io.wavfile import write_wav  # noqa: E402
 from audiotoken_tpu_torch.ops import _build  # noqa: E402
+from audiotoken_tpu_torch.ops.flash_attention import (  # noqa: E402
+    flash_attention_relkey,
+    flash_attention_relkey_plain,
+)
 from audiotoken_tpu_torch.ops.lstm import lstm_layer, lstm_layer_plain  # noqa: E402
 from audiotoken_tpu_torch.ops.rvq import rvq_encode, rvq_encode_plain  # noqa: E402
 from audiotoken_tpu_torch.ops.seanet_front import seanet_front, seanet_front_plain  # noqa: E402
 from audiotoken_tpu_torch.runtime.precision import get_policy  # noqa: E402
 
 SR = 24_000
-KERNEL_ATOL = 1e-4  # K1, K2: kernel vs plain, both IEEE f32, other sum order
+SR_M = 16_000  # semantic_m
+KERNEL_ATOL = 1e-4  # K1, K2, K4: kernel vs plain, both IEEE f32, other sum order
 RVQ_AGREEMENT = 0.999  # K3: late-codebook near-ties may flip (RVQ contract)
-KERNELS = (seanet_front, lstm_layer, rvq_encode)
+ACOUSTIC_KERNELS = (seanet_front, lstm_layer, rvq_encode)
+KERNELS = ACOUSTIC_KERNELS + (flash_attention_relkey,)
+W2V_BLOCKS = 19  # conformer blocks a semantic_m forward runs, one K4 launch each
 
 
 def say(*args):
@@ -197,7 +213,7 @@ def phase4_main_path(dev, tmp):
         wall = statistics.median(walls)
         say(f"[4] AcousticEncoder B={B} x 30 s int16: median wall {wall * 1e3:.1f} ms "
             f"(runs {', '.join(f'{w * 1e3:.1f}' for w in walls)}), RTFx {B * 30.0 / wall:.1f}")
-    counts = {k.__name__: k.launches for k in KERNELS}
+    counts = {k.__name__: k.launches for k in ACOUSTIC_KERNELS}
     say(f"[4] kernel launches during the main path: {counts}")
     for name, n in counts.items():
         if n < 1:
@@ -242,15 +258,152 @@ def phase5_goldens(dev, tmp):
         raise AssertionError("golden gate failed: " + "; ".join(failures))
 
 
+def phase3b_flash_attention(dev):
+    """K4 against its plain version: the semantic_m shape with a padding
+    mask that cuts two rows short, and the no-rel form (HuBERT's shape)."""
+    rng = np.random.default_rng(3)
+
+    def t(shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    B, H, T = 8, 16, 1500
+    q, k, v = t((B, H, T, 64), 0.3), t((B, H, T, 64), 0.3), t((B, H, T, 64), 1.0)
+    E = t((73, 64), 0.02)
+    mask = torch.ones((B, T), device=dev)
+    mask[1, T - 377:] = 0.0
+    mask[5, T // 2:] = 0.0
+    out = flash_attention_relkey(q, k, v, E, mask)
+    err = (out - flash_attention_relkey_plain(q, k, v, E, mask)).abs().max().item()
+    del out
+    ms = cuda_ms(lambda: flash_attention_relkey(q, k, v, E, mask), reps=9)
+    plain_ms = cuda_ms(lambda: flash_attention_relkey_plain(q, k, v, E, mask), reps=9)
+    say(f"[3b] K4 flash_attention_relkey [8, 16, 1500, 64], E [73, 64], masked: "
+        f"max|kernel-plain| {err:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
+    if not err <= KERNEL_ATOL:
+        raise AssertionError(f"K4 differs from its plain version by {err}")
+
+    q, k, v = q[:2, :12].contiguous(), k[:2, :12].contiguous(), v[:2, :12].contiguous()
+    out = flash_attention_relkey(q, k, v, None, None)
+    err_norel = (out - flash_attention_relkey_plain(q, k, v, None, None)).abs().max().item()
+    ms_norel = cuda_ms(lambda: flash_attention_relkey(q, k, v, None, None), reps=9)
+    plain_norel = cuda_ms(lambda: flash_attention_relkey_plain(q, k, v, None, None), reps=9)
+    say(f"[3b] K4 no rel, no mask [2, 12, 1500, 64]: max|kernel-plain| {err_norel:.3e}  "
+        f"kernel {ms_norel:.3f} ms  plain {plain_norel:.3f} ms")
+    if not err_norel <= KERNEL_ATOL:
+        raise AssertionError(f"K4 (no rel) differs from its plain version by {err_norel}")
+    return {"flash_attention_relkey": dict(max_abs_err=max(err, err_norel), ms=ms,
+                                           plain_ms=plain_ms)}
+
+
+def _check_ids(ids, shape):
+    if ids.shape != shape or ids.dtype != np.int16:
+        raise AssertionError(f"ids {ids.shape} {ids.dtype}, expected {shape} int16")
+    if ids.min() < 0 or ids.max() >= 2048:
+        raise AssertionError(f"ids outside [0, 2048): {ids.min()}..{ids.max()}")
+
+
+def phase4b_semantic_m(dev, tmp):
+    """The semantic_m entry points; returns K4's launch count and the
+    facade (its seed-0 encoder is reused by phase 5b)."""
+    rng = np.random.default_rng(8)
+    clip90 = (0.2 * rng.standard_normal(90 * SR_M)).astype(np.float32)
+    clip7 = (0.2 * rng.standard_normal(7 * SR_M + 123)).astype(np.float32)
+    pcm30 = (rng.standard_normal((32, 30 * SR_M)) * 3000).clip(-32768, 32767).astype(np.int16)
+    for name, clip in (("m90.wav", clip90), ("m7.wav", clip7)):
+        write_wav(os.path.join(tmp, name), clip[None], SR_M)
+    t0 = time.perf_counter()
+    at = AudioToken(Tokenizers.semantic_m, weights="random", device=dev)
+    at.load_encoder()
+    enc = at.encoder
+    say(f"[4b] Wav2VecBertEncoder built (random weights, seed 0) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    enc(pcm30[:8])  # warm up cuBLAS and the allocator
+    torch.cuda.synchronize()
+
+    for kern in KERNELS:
+        kern.launches = 0
+    forwards = 0
+    ids = at.encode(os.path.join(tmp, "m7.wav"))
+    forwards += 1
+    _check_ids(ids, (1, 1, (1 + (7 * SR_M + 123 - 400) // 160) // 2))
+    ids = at.encode(os.path.join(tmp, "m90.wav"), chunk_size=30)
+    forwards += 3
+    _check_ids(ids, (1, 1, 3 * 1499))
+    for B in (8, 32):
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids = enc(pcm30[:B])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            forwards += 1
+            _check_ids(ids, (B, 1, 1499))
+        wall = statistics.median(walls)
+        say(f"[4b] Wav2VecBertEncoder B={B} x 30 s int16: median wall {wall * 1e3:.1f} ms "
+            f"(runs {', '.join(f'{w * 1e3:.1f}' for w in walls)}), RTFx {B * 30.0 / wall:.1f}")
+    n = flash_attention_relkey.launches
+    say(f"[4b] K4 launches during the semantic_m main path: {n} over {forwards} forwards")
+    if n < W2V_BLOCKS * forwards:
+        raise AssertionError(f"K4 launched {n} times, expected >= {W2V_BLOCKS} x {forwards}")
+    return n, at
+
+
+def phase5b_semantic_m_goldens(dev, tmp, at):
+    g = np.load(os.path.join(parity.GOLD, "battery_semantic_m.npz"))
+    audio, lengths, names = battery(SR_M)
+    failures = []
+    for seed in WEIGHT_SEEDS:
+        enc = (at.encoder if seed == 0
+               else Wav2VecBertEncoder(weights="random", seed=seed, device=dev))
+        ids = enc(audio, attention_mask=lengths)
+        if seed != 0:
+            del enc
+            torch.cuda.empty_cache()
+        ref = g[f"ids_s{seed}"]
+        per_case = (ids.reshape(len(names), -1) == ref.reshape(len(names), -1)).mean(axis=1)
+        for name, agree in zip(names, per_case):
+            if ("semantic_m", name) in parity.DEGENERATE_CASES:
+                ok, gate = parity.degenerate_ok(float(agree)), "binary: >= 0.9 or <= 0.1"
+            else:
+                thresh = parity.case_thresh("semantic_m", name)
+                ok, gate = agree >= thresh, f">= {thresh}"
+            say(f"[5b] battery s{seed:<2d} {name:14s} agreement {agree:.6f} ({gate}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"s{seed} {name} {agree:.6f}")
+
+    g = np.load(os.path.join(parity.GOLD, "api_semantic_m.npz"))
+    for name, wav in api_clips(SR_M, at.encoder.buckets).items():
+        if name == "multichunk_90s":
+            path = os.path.join(tmp, "api_m90.wav")
+            write_wav(path, (np.clip(wav, -1, 1) * 32767.0).astype(np.int16)[None], SR_M)
+            toks = at.encode(path, chunk_size=30.0)
+        else:
+            toks = at.encode(wav[None].astype(np.float32))
+        ref = g[f"tokens_{name}"]
+        agree = float((toks == ref).mean()) if toks.shape == ref.shape else 0.0
+        ok = agree >= parity.THRESH
+        say(f"[5b] api {name:14s} agreement {agree:.6f} (>= {parity.THRESH}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"api {name} {agree:.6f}")
+    if failures:
+        raise AssertionError("semantic_m golden gate failed: " + "; ".join(failures))
+
+
 def main():
     phase1_device()
     dev = torch.device("cuda", 0)
     phase2_build()
     with get_policy("highest").numerics():
         res = phase3_kernels(dev)
+        res.update(phase3b_flash_attention(dev))
     with tempfile.TemporaryDirectory() as tmp:
         counts = phase4_main_path(dev, tmp)
         phase5_goldens(dev, tmp)
+        counts["flash_attention_relkey"], at = phase4b_semantic_m(dev, tmp)
+        phase5b_semantic_m_goldens(dev, tmp, at)
     rows = [
         ("seanet_front", "seanet_front", "audiotoken_tpu_torch/csrc/seanet_front.cu",
          "audiotoken_tpu/ops/seanet_pallas.py:124"),
@@ -258,6 +411,9 @@ def main():
          "audiotoken_tpu/ops/lstm_pallas.py:75"),
         ("rvq", "rvq_encode", "audiotoken_tpu_torch/csrc/rvq.cu",
          "audiotoken_tpu/ops/rvq_pallas.py:74"),
+        ("flash_attention_relkey", "flash_attention_relkey",
+         "audiotoken_tpu_torch/csrc/flash_attention.cu",
+         "audiotoken_tpu/ops/flash_attention.py:519"),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

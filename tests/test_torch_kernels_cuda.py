@@ -13,9 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from audiotoken_tpu_torch.encoders import AcousticEncoder
+from audiotoken_tpu_torch.encoders import AcousticEncoder, Wav2VecBertEncoder
 from audiotoken_tpu_torch.nn.rvq import RVQConfig, init_codebooks
 from audiotoken_tpu_torch.nn.seanet import SeanetConfig, SeanetEncoder, init_encoder_params
+from audiotoken_tpu_torch.ops.flash_attention import (
+    flash_attention_relkey,
+    flash_attention_relkey_plain,
+)
 from audiotoken_tpu_torch.ops.lstm import lstm_layer, lstm_layer_plain
 from audiotoken_tpu_torch.ops.rvq import rvq_encode, rvq_encode_plain
 from audiotoken_tpu_torch.ops.seanet_front import seanet_front, seanet_front_plain
@@ -128,3 +132,67 @@ def test_encoder_runs_the_kernels(dev):
     assert rvq_encode.launches > counts[2]
     ref = AcousticEncoder(weights="random", seed=0, device="cpu")(x)
     assert (codes == ref).mean() >= 0.99
+
+
+def _attn_inputs(dev, B, H, T, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def f(shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    return f((B, H, T, 64), 0.3), f((B, H, T, 64), 0.3), f((B, H, T, 64), 1.0), f((73, 64), 0.05)
+
+
+@pytest.mark.parametrize("has_mask", [True, False], ids=["mask", "nomask"])
+@pytest.mark.parametrize("has_rel", [True, False], ids=["rel", "norel"])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 600, 1500])
+def test_flash_attention_matches_plain(dev, T, has_rel, has_mask):
+    q, k, v, E = _attn_inputs(dev, 2, 3, T, seed=T)
+    E = E if has_rel else None
+    mask = None
+    if has_mask:
+        mask = torch.ones((2, T), device=dev)
+        mask[1, T // 2 + 1:] = 0.0  # a padded row
+    before = flash_attention_relkey.launches
+    out = flash_attention_relkey(q, k, v, E, mask)
+    torch.cuda.synchronize()
+    assert flash_attention_relkey.launches == before + 1
+    ref = flash_attention_relkey_plain(q, k, v, E, mask)
+    assert out.shape == ref.shape == (2, 3, T, 64)
+    assert torch.allclose(out, ref, atol=ATOL, rtol=0), (out - ref).abs().max().item()
+
+
+def test_flash_attention_all_masked_row(dev):
+    """A row whose keys are all masked: the same finite uniform average as
+    the plain version."""
+    q, k, v, E = _attn_inputs(dev, 2, 2, 200, seed=5)
+    mask = torch.ones((2, 200), device=dev)
+    mask[0] = 0.0
+    out = flash_attention_relkey(q, k, v, E, mask)
+    torch.cuda.synchronize()
+    ref = flash_attention_relkey_plain(q, k, v, E, mask)
+    assert torch.isfinite(out).all()
+    assert torch.allclose(out, ref, atol=ATOL, rtol=0), (out - ref).abs().max().item()
+
+
+def test_flash_attention_refuses(dev):
+    q, k, v, E = _attn_inputs(dev, 1, 2, 16)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention_relkey(q.double(), k, v, E, None)
+    with pytest.raises(ValueError, match="head size"):
+        flash_attention_relkey(q[..., :32], k[..., :32], v[..., :32], None, None)
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention_relkey(q, k, v, E[:10], None)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_relkey(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), E, None)
+
+
+def test_semantic_m_encoder_runs_the_kernel(dev):
+    enc = Wav2VecBertEncoder(weights="random", seed=0, device=dev)
+    x = (np.random.default_rng(2).standard_normal((2, 20_800)) * 0.2).astype(np.float32)
+    before = flash_attention_relkey.launches
+    ids = enc(x)
+    assert flash_attention_relkey.launches - before == 19
+    assert ids.shape == (2, 1, 64) and ids.dtype == np.int16
+    ref = Wav2VecBertEncoder(weights="random", seed=0, device="cpu")(x)
+    assert (ids == ref).mean() >= 0.99

@@ -1,5 +1,5 @@
 """Port weights against the JAX package's: random init, the npz store, and
-the layout bridge to the port's SeanetEncoder."""
+the layout bridges to the port's SeanetEncoder and W2VBertFeatures."""
 
 import jax
 import numpy as np
@@ -8,10 +8,18 @@ import torch
 
 from audiotoken_tpu.convert.store import load_params as jax_load_params
 from audiotoken_tpu.convert.store import save_params as jax_save_params
+from audiotoken_tpu.configs import Wav2VecBertConfig as JaxWav2VecBertConfig
 from audiotoken_tpu.weights import get_acoustic_params as jax_get_acoustic_params
+from audiotoken_tpu.weights import get_w2vbert_params as jax_get_w2vbert_params
 from audiotoken_tpu_torch.convert.store import load_params
+from audiotoken_tpu_torch.nn.conformer import W2VBertConfig, W2VBertFeatures, init_w2vbert_params
 from audiotoken_tpu_torch.nn.seanet import SeanetEncoder
-from audiotoken_tpu_torch.weights import acoustic_from_numpy, get_acoustic_params
+from audiotoken_tpu_torch.weights import (
+    acoustic_from_numpy,
+    get_acoustic_params,
+    get_w2vbert_params,
+    w2vbert_from_numpy,
+)
 
 
 def _leaves(tree):
@@ -73,3 +81,48 @@ def test_unavailable_sources_raise(tmp_path):
         get_acoustic_params("artifacts")
     with pytest.raises(FileNotFoundError):
         get_acoustic_params(str(tmp_path))
+
+
+def test_w2vbert_random_params_bitwise_equal():
+    """All 21 blocks and then the [2048, 1024] codebook, from one generator."""
+    params, codebook = get_w2vbert_params("random", 0)
+    jparams, jcodebook = jax_get_w2vbert_params("random", 0, JaxWav2VecBertConfig())
+    _assert_trees_bitwise_equal(params, jparams)
+    assert codebook.dtype == np.float32 and codebook.shape == (2048, 1024)
+    np.testing.assert_array_equal(codebook, jcodebook)
+
+
+def test_w2vbert_npz_store_loads_identically(tmp_path):
+    cfg = W2VBertConfig(hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
+                        intermediate_size=64)
+    params = init_w2vbert_params(np.random.default_rng(4), cfg)
+    codebook = np.random.default_rng(5).standard_normal((8, 32)).astype(np.float32)
+    jax_save_params(str(tmp_path / "w2vbert.npz"), params)
+    jax_save_params(str(tmp_path / "w2vbert_vq.npz"), {"codebook": codebook})
+    got, got_cb = get_w2vbert_params(str(tmp_path))
+    _assert_trees_bitwise_equal(got, params)
+    np.testing.assert_array_equal(got_cb, codebook)
+
+
+def test_w2vbert_bridge_layout():
+    cfg = W2VBertConfig(hidden_size=32, num_hidden_layers=3, num_attention_heads=2,
+                        intermediate_size=64)
+    params = init_w2vbert_params(np.random.default_rng(6), cfg)
+    m = W2VBertFeatures(cfg, 2).requires_grad_(False)
+    m.load_state_dict(w2vbert_from_numpy(params, 2))  # strict: every parameter named and shaped
+    layer = params["layers"][1]
+    np.testing.assert_array_equal(m.layers[1].ffn1.inp.weight.numpy(),
+                                  layer["ffn1"]["in"]["kernel"].T)
+    np.testing.assert_array_equal(m.layers[1].attn.k.weight.numpy(), layer["attn"]["k"]["kernel"].T)
+    np.testing.assert_array_equal(m.layers[1].conv.dw_weight.numpy(),
+                                  layer["conv"]["dw_kernel"].transpose(2, 1, 0))
+    assert m.layers[1].conv.pw1.bias is None
+    np.testing.assert_array_equal(m.layers[1].attn.distance_embedding.numpy(),
+                                  layer["attn"]["distance_embedding"])
+
+
+def test_w2vbert_unavailable_sources_raise(tmp_path):
+    with pytest.raises(NotImplementedError, match="converters"):
+        get_w2vbert_params("artifacts")
+    with pytest.raises(FileNotFoundError, match="w2vbert_vq"):
+        get_w2vbert_params(str(tmp_path))
