@@ -3,10 +3,12 @@
 Runs on an NVIDIA Hopper GPU (H100), with hand-written CUDA kernels where
 the JAX package had Pallas kernels and plain PyTorch elsewhere. Ported so
 far: acoustic encode (SEANet encoder + residual VQ), through
-``AudioToken(Tokenizers.acoustic, ...).encode`` and ``AcousticEncoder``,
-and semantic_m encode (fbank + w2v-BERT conformer + VQ), through
+``AudioToken(Tokenizers.acoustic, ...).encode`` and ``AcousticEncoder``;
+semantic_m encode (fbank + w2v-BERT conformer + VQ), through
 ``AudioToken(Tokenizers.semantic_m, ...).encode`` and
-``Wav2VecBertEncoder``.
+``Wav2VecBertEncoder``; acoustic decode (``AcousticDecoder``) and semantic
+decode (GPT -> Bark-fine -> EnCodec decoder, ``Wav2VecBertDecoder`` and
+``HubertDecoder``), through ``AudioToken.decode`` / ``decode_batch``.
 
 Imports ``torch`` and ``numpy``, never JAX. The device is explicit: the
 default is CUDA, and ``device="cpu"`` runs every kernel's plain PyTorch
@@ -16,6 +18,7 @@ at first use on a CUDA tensor (``ops/_build.py``).
 
 from .api import AudioToken
 from .configs import Tokenizers
+from .decoders import AcousticDecoder, HubertDecoder, Wav2VecBertDecoder
 from .encoders import AcousticEncoder, Wav2VecBertEncoder
 from .io.audio import read_audio
 
@@ -23,8 +26,11 @@ __version__ = "0.1.0"
 
 __all__ = [
     "AudioToken",
+    "AcousticDecoder",
     "AcousticEncoder",
+    "HubertDecoder",
     "Tokenizers",
+    "Wav2VecBertDecoder",
     "Wav2VecBertEncoder",
     "read_audio",
     "__version__",

@@ -1,10 +1,10 @@
-"""AudioToken facade, encode side of acoustic and semantic_m.
+"""AudioToken facade: encode and decode for acoustic and semantic_m.
 
 Counterpart of ``audiotoken_tpu/api.py:AudioToken``: same constructor
-arguments (plus an explicit torch ``device``, default CUDA) and the same
+arguments (plus an explicit torch ``device``, default CUDA), the same
 ``encode`` surface, returning numpy int16 tokens [1, K, T] (K = 1 for
-semantic_m). What later slices of the port bring raises
-``NotImplementedError`` until then.
+semantic_m), and ``decode`` / ``decode_batch`` back to waveforms. What
+later slices of the port bring raises ``NotImplementedError`` until then.
 """
 
 import os
@@ -14,6 +14,7 @@ from typing import Optional, Union
 import numpy as np
 
 from .configs import (
+    AcousticDecoderConfig,
     AcousticEncoderConfig,
     Tokenizers,
     Wav2VecBertConfig,
@@ -29,7 +30,7 @@ class AudioToken:
 
     Args:
         tokenizer: :class:`Tokenizers`; ``acoustic`` and ``semantic_m`` are
-            ported so far.
+            ported so far (encode and decode).
         device: torch device, default ``"cuda"`` (which raises when no GPU
             is present); ``"cpu"`` runs the kernels' plain versions.
         num_codebooks: acoustic codebook count in {2, 4, 8, 16}.
@@ -69,6 +70,7 @@ class AudioToken:
             self.model_config = Wav2VecBertConfig()
         self.model_sample_rate = self.model_config.model_sample_rate
         self.encoder = None
+        self.decoder = None
 
     def load_encoder(self):
         if self.encoder is None:
@@ -134,5 +136,47 @@ class AudioToken:
             "encode_batch_files: the corpus executor comes with the facade slice of the port"
         )
 
-    def decode(self, *args, **kwargs):
-        raise NotImplementedError("decode: the decoders come with later slices of the port")
+    def load_decoder(self, **kwargs):
+        """Build the decoder once; ``kwargs`` go to its constructor
+        (``AcousticDecoder`` or ``Wav2VecBertDecoder``)."""
+        if self.decoder is not None:
+            return
+        from . import decoders
+
+        common = dict(weights=self.weights, precision=self.precision, seed=self.seed,
+                      device=self.device)
+        if self.tokenizer_name == Tokenizers.acoustic:
+            cfg = AcousticDecoderConfig(bandwidth=num_codebooks_to_bandwidth(self.num_codebooks))
+            self.decoder = decoders.AcousticDecoder(config=cfg, **common, **kwargs)
+        else:
+            self.decoder = decoders.Wav2VecBertDecoder(**common, **kwargs)
+
+    def decode(self, tokens: ArrayLike, **kwargs) -> np.ndarray:
+        """Decode tokens [1, K, T] (acoustic) or [T] / [1, T] (semantic_m
+        ids), as an array or a ``.npy`` path, to a waveform [1, samples]
+        float32 (int16 with ``output_dtype="int16"``). ``kwargs`` reach
+        the decoder's constructor on the first call."""
+        self.load_decoder(**kwargs)
+        if isinstance(tokens, (os.PathLike, Path, str)):
+            tokens = np.load(tokens)
+        return np.asarray(self.decoder(np.asarray(tokens).astype(np.int32)))
+
+    def decode_batch(self, token_seqs, **kwargs):
+        """Decode several token sequences -> a list of [1, samples]
+        waveforms. semantic_m sequences decode together in every stage;
+        acoustic ones as one batch per run of equal shapes."""
+        self.load_decoder(**kwargs)
+        seqs = [np.load(t) if isinstance(t, (os.PathLike, Path, str)) else np.asarray(t)
+                for t in token_seqs]
+        if self.tokenizer_name != Tokenizers.acoustic:
+            return self.decoder.decode_batch([s.reshape(-1).astype(np.int32) for s in seqs])
+        outs, i = [], 0
+        while i < len(seqs):
+            grp = [seqs[i]]
+            while i + len(grp) < len(seqs) and seqs[i + len(grp)].shape == grp[0].shape:
+                grp.append(seqs[i + len(grp)])
+            batch = np.stack([g.reshape(g.shape[-2], g.shape[-1]) for g in grp])
+            wav = self.decoder.forward_codes(batch.astype(np.int32)).cpu().numpy()
+            outs.extend(wav[j].reshape(1, -1) for j in range(len(grp)))
+            i += len(grp)
+        return outs

@@ -1,14 +1,25 @@
-"""Tokenizer registry and the encoders' configurations.
+"""Tokenizer registry, the encoders' and decoders' configurations, and the
+joint vocabulary of the semantic -> acoustic GPT.
 
-Counterpart of ``audiotoken_tpu/configs.py`` for the ported encoders
-(acoustic and semantic_m): semantic_s is named here so that
-:class:`Tokenizers` keeps its three members, but its config arrives with
-its slice of the port.
+Counterpart of ``audiotoken_tpu/configs.py`` for the ported paths
+(acoustic and semantic_m encode, acoustic and semantic decode): semantic_s
+is named here so that :class:`Tokenizers` keeps its three members, but its
+encoder config arrives with its slice of the port.
 """
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from enum import Enum
-from typing import Optional
+from typing import Dict, Optional, Tuple
+
+
+class COMMONS(str, Enum):
+    """Modalities and languages."""
+
+    SEMANTIC = "semantic"
+    ACOUSTIC = "acoustic"
+    TEXT = "text"
+    HI = "hi"
+    EN = "en"
 
 
 class Tokenizers(str, Enum):
@@ -39,6 +50,13 @@ class AcousticEncoderConfig(EncoderConfig):
 
 
 @dataclass(frozen=True)
+class AcousticDecoderConfig(AcousticEncoderConfig):
+    """Acoustic decode defaults to 8 codebooks (6 kbps)."""
+
+    bandwidth: float = 6.0
+
+
+@dataclass(frozen=True)
 class Wav2VecBertConfig(EncoderConfig):
     """Trimmed 21-layer w2v-BERT-2.0, layer 19 + 2048-entry VQ."""
 
@@ -51,8 +69,77 @@ class Wav2VecBertConfig(EncoderConfig):
     hidden_dim: int = 1024
 
 
+@dataclass(frozen=True)
+class VocabLayout:
+    """Joint TEXT + SEMANTIC + ACOUSTIC vocabulary with special tokens:
+    offsets per modality, PAD/INFER/STOP ids, and the vocabulary size
+    rounded up to a multiple of 64 (53,376)."""
+
+    text_size: int = 50_257
+    semantic_size: int = 1_000
+    acoustic_size: int = 2_048
+
+    @property
+    def offsets(self) -> Dict[COMMONS, int]:
+        return {
+            COMMONS.TEXT: 0,
+            COMMONS.SEMANTIC: self.text_size,
+            COMMONS.ACOUSTIC: self.text_size + self.semantic_size,
+        }
+
+    @property
+    def max_token_value(self) -> int:
+        return self.text_size + self.semantic_size + self.acoustic_size
+
+    @property
+    def pad_token(self) -> Dict[COMMONS, int]:
+        m = self.max_token_value
+        return {COMMONS.TEXT: 50_256, COMMONS.SEMANTIC: m + 2, COMMONS.ACOUSTIC: m + 3}
+
+    @property
+    def infer_token(self) -> Dict[COMMONS, int]:
+        m = self.max_token_value
+        return {COMMONS.TEXT: m + 4, COMMONS.SEMANTIC: m + 5, COMMONS.ACOUSTIC: m + 6}
+
+    @property
+    def stop_token(self) -> Dict[COMMONS, int]:
+        m = self.max_token_value
+        return {COMMONS.TEXT: m + 7, COMMONS.SEMANTIC: m + 8, COMMONS.ACOUSTIC: m + 9}
+
+    @property
+    def vocab_size(self) -> int:
+        return (max(self.stop_token.values()) // 64 + 1) * 64
+
+
+@dataclass(frozen=True)
+class SemanticDecoderConfig:
+    """Semantic -> audio decoder: which GPT checkpoint per language, the
+    source truncation, and the coarse codebook layout."""
+
+    supported_languages: Tuple[COMMONS, ...] = (COMMONS.EN,)
+    model_artifacts: Tuple[Tuple[COMMONS, str], ...] = ((COMMONS.EN, "gpt_semantic_s_en"),)
+    max_source_tokens: int = 256
+    coarse_codebooks: int = 2
+    per_codebook_size: int = 1024
+    vocab: VocabLayout = field(default_factory=VocabLayout)
+
+
+HubertDecoderConfig = SemanticDecoderConfig  # semantic_s: EN, 256 source tokens
+
+Wav2VecBertDecoderConfig = SemanticDecoderConfig(
+    supported_languages=(COMMONS.HI,),
+    model_artifacts=((COMMONS.HI, "gpt_semantic_m_hi"),),
+    max_source_tokens=250,
+)
+
+
 # Bandwidth (kbps) <-> codebook ladder of EnCodec 24 kHz.
+_BW_TO_NQ = {1.5: 2, 3.0: 4, 6.0: 8, 12.0: 16, 24.0: 32}
 _NQ_TO_BW = {2: 1.5, 4: 3.0, 8: 6.0, 16: 12.0}
+
+
+def bandwidth_to_num_codebooks(bandwidth: float) -> int:
+    return _BW_TO_NQ[float(bandwidth)]
 
 
 def num_codebooks_to_bandwidth(num_codebooks: int) -> float:

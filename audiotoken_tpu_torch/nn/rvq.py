@@ -1,8 +1,9 @@
-"""Residual vector quantization (EnCodec style), encode side.
+"""Residual vector quantization (EnCodec style).
 
-Counterpart of ``audiotoken_tpu/nn/rvq.py``. On a CUDA tensor the codebook
-cascade is kernel K3 (``ops/rvq.py``); on a CPU tensor it is K3's plain
-PyTorch version, which computes ``nn/rvq.py:rvq_encode``'s function.
+Counterpart of ``audiotoken_tpu/nn/rvq.py``. On a CUDA tensor the encode
+side's codebook cascade is kernel K3 (``ops/rvq.py``); on a CPU tensor it
+is K3's plain PyTorch version, which computes ``nn/rvq.py:rvq_encode``'s
+function. The decode side (:func:`rvq_decode`) is a sum of gathers.
 """
 
 import math
@@ -29,6 +30,16 @@ class RVQConfig:
         if bandwidth is None or bandwidth <= 0:
             return self.num_quantizers
         return int(max(1, math.floor(bandwidth * 1000 / bw_per_q)))
+
+
+def rvq_decode(codebooks: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """codebooks [K, C, D], codes [B, num_q, T] -> embeddings [B, T, D]: the
+    sum of the first num_q codebooks' rows, added in codebook order."""
+    codes = codes.long()
+    out = codebooks[0][codes[:, 0]]
+    for k in range(1, codes.shape[1]):
+        out = out + codebooks[k][codes[:, k]]
+    return out
 
 
 def init_codebooks(rng, cfg: RVQConfig) -> np.ndarray:

@@ -1,12 +1,14 @@
-"""SEANet encoder (EnCodec 24 kHz architecture) as a PyTorch module.
+"""SEANet encoder and decoder (EnCodec 24 kHz architecture) as PyTorch
+modules.
 
 Counterpart of ``audiotoken_tpu/nn/seanet.py`` (``seanet_encode``,
-``_resnet_block``, ``lstm_skip``). Activations stay in PyTorch's [B, C, T]
-layout and are transposed once, to [B, T, C], around the LSTM.
+``seanet_decode``, ``_resnet_block``, ``lstm_skip``). Activations stay in
+PyTorch's [B, C, T] layout and are transposed once, to [B, T, C], around
+the LSTM.
 
-The front (conv_in plus the first residual block, at the full sample rate)
-is kernel K1 and the LSTM recurrence is kernel K2; on a CPU tensor both
-run their plain PyTorch versions. The numpy initialisers make the same
+The encoder's front (conv_in plus the first residual block, at the full
+sample rate) is kernel K1 and the LSTM recurrence, in both directions, is
+kernel K2; on a CPU tensor both run their plain PyTorch versions. The numpy initialisers make the same
 draws, in the same order, as the JAX package's, so ``weights="random"``
 gives both packages bit-identical parameters.
 """
@@ -19,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv import conv1d
+from ..ops.conv import conv1d, conv_transpose1d
 from ..ops.lstm import lstm_skip
 from ..ops.seanet_front import seanet_front
 
@@ -39,6 +41,7 @@ class SeanetConfig:
     lstm_layers: int = 2
     causal: bool = True
     pad_mode: str = "reflect"
+    trim_right_ratio: float = 1.0  # decoder: share of a transposed conv's trim on the right
     use_conv_shortcut: bool = True
 
     @property
@@ -145,6 +148,67 @@ class SeanetEncoder(nn.Module):
         h = lstm_skip(layers, h.transpose(1, 2).float()).to(dtype)  # [B, T', C]
         h = self.conv_out(F.elu(h).transpose(1, 2))
         return h.transpose(1, 2)  # [B, T', dimension]
+
+
+class SConvTranspose1d(nn.Module):
+    """EnCodec causal transposed conv; weight [C_in, C_out, K]."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int, stride: int,
+                 trim_right_ratio: float):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(cin, cout, kernel_size), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
+        self.stride, self.trim_right_ratio = stride, trim_right_ratio
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_transpose1d(x, self.weight, self.bias, self.stride, self.trim_right_ratio)
+
+
+class DecoderStage(nn.Module):
+    def __init__(self, cfg: SeanetConfig, dim: int, ratio: int):
+        super().__init__()
+        self.up = SConvTranspose1d(dim, dim // 2, 2 * ratio, ratio, cfg.trim_right_ratio)
+        self.res = nn.ModuleList(
+            ResnetBlock(cfg, dim // 2, cfg.dilation_growth_rate**j)
+            for j in range(cfg.num_residual_layers)
+        )
+
+
+class SeanetDecoder(nn.Module):
+    """Latents [B, T', dimension] -> waveform [B, T' * hop].
+
+    conv_in, the LSTM with skip (kernel K2 on a CUDA tensor), then per
+    ratio ELU -> transposed conv (stride r, kernel 2r) -> residual blocks,
+    and ELU -> conv_out. Activations stay [B, C, T] and are transposed
+    around the LSTM, as in the encoder."""
+
+    def __init__(self, cfg: SeanetConfig = SeanetConfig()):
+        super().__init__()
+        if not cfg.causal or cfg.pad_mode != "reflect" or not cfg.use_conv_shortcut:
+            raise ValueError("SeanetDecoder: the port's convs are causal, reflect-padded, "
+                             "with a conv shortcut")
+        self.cfg = cfg
+        dim = 2 ** len(cfg.ratios) * cfg.num_filters
+        self.conv_in = SConv1d(cfg.dimension, dim, cfg.kernel_size)
+        self.lstm = nn.ModuleList(LSTMLayer(dim) for _ in range(cfg.lstm_layers))
+        stages = []
+        for ratio in cfg.ratios:
+            stages.append(DecoderStage(cfg, dim, ratio))
+            dim //= 2
+        self.stages = nn.ModuleList(stages)
+        self.conv_out = SConv1d(cfg.num_filters, cfg.channels, cfg.last_kernel_size)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        # K2 computes in f32; under a bf16 policy the plain convs run in bf16
+        dtype = z.dtype
+        h = self.conv_in(z.transpose(1, 2))  # [B, 512, T']
+        layers = [(l.wih, l.whh, l.bih, l.bhh) for l in self.lstm]
+        h = lstm_skip(layers, h.transpose(1, 2).float()).to(dtype).transpose(1, 2)
+        for stage in self.stages:
+            h = stage.up(F.elu(h))
+            for res in stage.res:
+                h = res(h)
+        return self.conv_out(F.elu(h))[:, 0, :]  # [B, T' * hop]
 
 
 # ---------------------------------------------------------------------------

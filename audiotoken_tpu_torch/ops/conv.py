@@ -41,6 +41,21 @@ def pad1d_reflect(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
     return out[..., : out.shape[-1] - extra] if extra else out
 
 
+def conv_transpose1d(
+    x: torch.Tensor, weight: torch.Tensor, bias, stride: int, trim_right_ratio: float = 1.0
+) -> torch.Tensor:
+    """EnCodec causal transposed conv of x [B, C_in, T] with weight
+    [C_in, C_out, K] (torch ``ConvTranspose1d`` layout), then the causal
+    post-trim: of ``K - stride`` extra samples, ``ceil(... * trim_right_ratio)``
+    come off the right and the rest off the left."""
+    out = F.conv_transpose1d(x, weight.to(x.dtype),
+                             None if bias is None else bias.to(x.dtype), stride=stride)
+    padding_total = weight.shape[-1] - stride
+    pad_right = math.ceil(padding_total * trim_right_ratio)
+    pad_left = padding_total - pad_right
+    return out[..., pad_left : out.shape[-1] - pad_right]
+
+
 def conv1d(
     x: torch.Tensor, weight: torch.Tensor, bias, stride: int = 1, dilation: int = 1
 ) -> torch.Tensor:

@@ -1,11 +1,18 @@
-"""K4: attention with the relative_key position bias and the padding bias.
+"""K4: attention with the relative_key position bias and the padding bias;
+K5: plain non-causal attention.
 
-Counterpart of ``audiotoken_tpu/ops/flash_attention.py:flash_attention_relkey``
-(Pallas kernel ``_kernel``, and its 2-head-packed form, which computes the
-same function). The CUDA kernel is ``csrc/flash_attention.cu``: blockwise,
-with an online softmax, so no [T, T] scores reach device memory.
-:func:`flash_attention_relkey_plain` is the same function written the
-direct way, with full scores and a gather for the rel term.
+K4 is the counterpart of ``audiotoken_tpu/ops/flash_attention.py:
+flash_attention_relkey`` (Pallas kernel ``_kernel``, and its 2-head-packed
+form, which computes the same function). Its CUDA kernel is
+``csrc/flash_attention.cu``: blockwise, with an online softmax, so no
+[T, T] scores reach device memory. :func:`flash_attention_relkey_plain` is
+the same function written the direct way, with full scores and a gather
+for the rel term.
+
+K5 (:func:`flash_attention_plain`, ``csrc/flash_attention_plain.cu``) is
+the counterpart of ``_flash_attention_plain``: no bias, no mask, q
+pre-scaled, bf16 or f32. It is a kernel of its own, not K4 without its
+terms, because it also takes bf16.
 """
 
 import torch
@@ -13,7 +20,8 @@ import torch
 from . import _build
 from .attention import padding_bias
 
-#: head size the kernel is compiled for (csrc/flash_attention.cu)
+#: head size the kernels are compiled for (csrc/flash_attention.cu,
+#: csrc/flash_attention_plain.cu)
 KERNEL_DH = 64
 
 
@@ -74,3 +82,42 @@ def flash_attention_relkey(q, k, v, dist_embedding=None, frame_mask=None,
 
 
 flash_attention_relkey.launches = 0
+
+
+def noncausal_attention_plain(q, k, v):
+    """q (pre-scaled by dh^-0.5), k, v [B, H, T, dh] bf16 or f32 ->
+    ``softmax(q k^T) v`` [B, H, T, dh] in the input's dtype, computed in f32."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    return torch.matmul(torch.softmax(s, dim=-1), v.float()).to(q.dtype)
+
+
+def flash_attention_plain(q, k, v):
+    """K5: the function of :func:`noncausal_attention_plain` (non-causal,
+    no bias, no mask, q pre-scaled). Launches the kernel of
+    ``csrc/flash_attention_plain.cu`` for CUDA tensors (bf16 or f32,
+    contiguous, dh = 64) and runs the plain version for CPU tensors.
+
+    Counterpart of ``audiotoken_tpu/ops/flash_attention.py:
+    _flash_attention_plain`` (Pallas kernels ``_kernel_onepass`` and
+    ``_kernel_plain``), which Bark-fine's attention reaches."""
+    if q.device.type == "cpu":
+        return noncausal_attention_plain(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_plain: unsupported device {q.device}")
+    B, H, T, dh = q.shape
+    if dh != KERNEL_DH:
+        raise ValueError(f"flash_attention_plain: head size {dh}, the kernel takes {KERNEL_DH}")
+    if q.dtype not in _build.DTYPE_SUFFIX:
+        raise ValueError(f"flash_attention_plain: dtype {q.dtype}, the kernel takes bf16 or f32")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.check_tensor(t, name, (B, H, T, dh), q.dtype, q.device, vector_loads=True)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    _build.launch(f"flash_attention_plain_{_build.DTYPE_SUFFIX[q.dtype]}", q.device,
+                  q, k, v, out, B * H, T)
+    flash_attention_plain.launches += 1
+    return out
+
+
+flash_attention_plain.launches = 0

@@ -1,9 +1,10 @@
 """Model parameters: a converted store, or seeded random ones.
 
-``get_acoustic_params`` and ``get_w2vbert_params`` return the JAX
-package's parameter trees (numpy, conv kernels [K, C_in, C_out], linear
-kernels [in, out]); ``acoustic_from_numpy`` and ``w2vbert_from_numpy`` are
-the bridges from those trees to the port's modules.
+``get_acoustic_params``, ``get_w2vbert_params``, ``get_semantic_gpt_params``
+and ``get_bark_fine_params`` return the JAX package's parameter trees
+(numpy, conv kernels [K, C_in, C_out], linear kernels [in, out]); the
+``*_from_numpy`` functions are the bridges from those trees to the port's
+modules' state dicts (f32; a caller casts to its stage dtype after).
 """
 
 import os
@@ -22,11 +23,7 @@ def get_acoustic_params(weights: str = "artifacts", seed: int = 0):
     ``audiotoken_tpu.weights.get_acoustic_params("random", seed)``.
     """
     if weights == "artifacts":
-        raise NotImplementedError(
-            'weights="artifacts" needs the checkpoint converters, which come '
-            "with a later slice of the port; convert with the JAX package's "
-            'converter and pass its output directory, or use weights="random"'
-        )
+        raise _artifacts_unsupported()
     if weights == "random":
         from .nn.rvq import RVQConfig, init_codebooks
         from .nn.seanet import SeanetConfig, init_decoder_params, init_encoder_params
@@ -76,6 +73,34 @@ def acoustic_from_numpy(tree):
     return state, _t(tree["codebooks"])
 
 
+def acoustic_decoder_from_numpy(tree):
+    """JAX-layout acoustic tree -> (SeanetDecoder state dict, codebooks).
+
+    Conv kernels [K, C_in, C_out] become [C_out, C_in, K]; transposed-conv
+    kernels [K, C_out, C_in] become torch's [C_in, C_out, K]; LSTM weights
+    are already in torch layout. The encoder's parameters are not used.
+    """
+    dec = tree["decoder"]
+    state = {}
+
+    def conv(prefix, p):
+        state[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).transpose(2, 1, 0))
+        state[f"{prefix}.bias"] = _t(p["bias"])
+
+    conv("conv_in", dec["conv_in"])
+    for li, layer in enumerate(dec["lstm"]["layers"]):
+        for name in ("wih", "whh", "bih", "bhh"):
+            state[f"lstm.{li}.{name}"] = _t(layer[name])
+    for si, stage in enumerate(dec["stages"]):
+        conv(f"stages.{si}.up", stage["up"])  # [K, C_out, C_in] -> [C_in, C_out, K]
+        for j, res in enumerate(stage["res"]):
+            for name in ("conv1", "conv2", "shortcut"):
+                if name in res:
+                    conv(f"stages.{si}.res.{j}.{name}", res[name])
+    conv("conv_out", dec["conv_out"])
+    return state, _t(tree["codebooks"])
+
+
 def get_w2vbert_params(weights: str = "artifacts", seed: int = 0, config=None):
     """(conformer params, VQ codebook [num_clusters, hidden_dim]) for
     semantic_m.
@@ -90,11 +115,7 @@ def get_w2vbert_params(weights: str = "artifacts", seed: int = 0, config=None):
 
     config = config or Wav2VecBertConfig()
     if weights == "artifacts":
-        raise NotImplementedError(
-            'weights="artifacts" needs the checkpoint converters, which come '
-            "with a later slice of the port; convert with the JAX package's "
-            'converter and pass its output directory, or use weights="random"'
-        )
+        raise _artifacts_unsupported()
     if weights == "random":
         rng = np.random.default_rng(seed)
         params = init_w2vbert_params(rng, W2VBertConfig())
@@ -144,4 +165,100 @@ def w2vbert_from_numpy(tree, num_layers: int):
         state[f"{pre}.conv.dw_weight"] = _t(np.asarray(conv["dw_kernel"]).transpose(2, 1, 0))
         layer_norm(f"{pre}.conv.dw_layer_norm", conv["dw_layer_norm"])
         linear(f"{pre}.conv.pw2", conv["pw2"])
+    return state
+
+
+def _artifacts_unsupported():
+    return NotImplementedError(
+        'weights="artifacts" needs the checkpoint converters, which come '
+        "with a later slice of the port; convert with the JAX package's "
+        'converter and pass its output directory, or use weights="random"'
+    )
+
+
+def get_semantic_gpt_params(weights: str, seed: int, artifact_key: str, vocab_size: int,
+                            config=None):
+    """(GPT params, GPTConfig) of the semantic -> acoustic model (12 layers,
+    12 heads, 768 wide, block 1024, ``vocab_size``).
+
+    ``weights`` is a directory holding ``<artifact_key>.npz`` (for example
+    ``gpt_semantic_m_hi.npz``), or ``"random"``: seeded numpy draws,
+    bit-identical to ``audiotoken_tpu.weights.get_semantic_gpt_params``.
+    ``config`` replaces the full-size GPTConfig (tests)."""
+    from .nn.gpt import GPTConfig, init_gpt_params
+
+    cfg = config or GPTConfig(vocab_size=vocab_size)
+    if weights == "artifacts":
+        raise _artifacts_unsupported()
+    if weights == "random":
+        return init_gpt_params(np.random.default_rng(seed), cfg), cfg
+    path = os.path.join(weights, f"{artifact_key}.npz")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no {artifact_key}.npz under {weights}")
+    return load_params(path), cfg
+
+
+def get_bark_fine_params(weights: str, seed: int, config=None):
+    """(Bark-fine params, BarkFineConfig): 24 layers, 16 heads, 1024 wide.
+
+    ``weights`` is a directory holding ``bark_fine.npz``, or ``"random"``:
+    seeded numpy draws, bit-identical to
+    ``audiotoken_tpu.weights.get_bark_fine_params``. ``config`` replaces the
+    full-size BarkFineConfig (tests)."""
+    from .nn.bark_fine import BarkFineConfig, init_bark_fine_params
+
+    cfg = config or BarkFineConfig()
+    if weights == "artifacts":
+        raise _artifacts_unsupported()
+    if weights == "random":
+        return init_bark_fine_params(np.random.default_rng(seed), cfg), cfg
+    path = os.path.join(weights, "bark_fine.npz")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no bark_fine.npz under {weights}")
+    return load_params(path), cfg
+
+
+def _transformer_state(layers, state):
+    """Blocks of the GPT and of Bark-fine, which share their layout:
+    linear kernels [in, out] -> weight [out, in]; LN scale/bias ->
+    weight/bias."""
+
+    def linear(prefix, p):
+        state[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+        if p.get("bias") is not None:
+            state[f"{prefix}.bias"] = _t(p["bias"])
+
+    def layer_norm(prefix, p):
+        state[f"{prefix}.weight"] = _t(p["scale"])
+        if p.get("bias") is not None:
+            state[f"{prefix}.bias"] = _t(p["bias"])
+
+    for i, p in enumerate(layers):
+        layer_norm(f"layers.{i}.ln1", p["ln1"])
+        layer_norm(f"layers.{i}.ln2", p["ln2"])
+        linear(f"layers.{i}.qkv", p["attn"]["qkv"])
+        linear(f"layers.{i}.out", p["attn"]["out"])
+        linear(f"layers.{i}.mlp_in", p["mlp"]["in"])
+        linear(f"layers.{i}.mlp_out", p["mlp"]["out"])
+    return layer_norm
+
+
+def gpt_from_numpy(tree):
+    """JAX-layout GPT tree -> state dict of the port's ``GPT``."""
+    state = {"wte": _t(tree["wte"]), "wpe": _t(tree["wpe"])}
+    layer_norm = _transformer_state(tree["layers"], state)
+    layer_norm("ln_f", tree["ln_f"])
+    return state
+
+
+def bark_fine_from_numpy(tree):
+    """JAX-layout Bark-fine tree -> state dict of the port's ``BarkFine``;
+    the lm_heads [C, vocab] become [vocab, C]."""
+    state = {"wpe": _t(tree["wpe"])}
+    for i, w in enumerate(tree["wtes"]):
+        state[f"wtes.{i}"] = _t(w)
+    for i, w in enumerate(tree["lm_heads"]):
+        state[f"lm_heads.{i}"] = _t(np.asarray(w).T)
+    layer_norm = _transformer_state(tree["layers"], state)
+    layer_norm("ln_f", tree["ln_f"])
     return state

@@ -24,7 +24,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
      ``Wav2VecBertEncoder`` at 8 and 32 x 30 s of int16 PCM, with
      real-time factors; K4 must launch 19 times per forward;
   5b. the semantic_m golden gate: ``battery_semantic_m.npz`` (4 seeds x 12
-     cases) and ``api_semantic_m.npz`` under the semantic_m contract.
+     cases) and ``api_semantic_m.npz`` under the semantic_m contract;
+  3c. the decode kernels against their plain versions, bf16 and f32: K5
+     (non-causal attention) at [8, 16, 1024, 64], K6 (decode attention)
+     and K7 (decode_qkv, decode_ffn) at B=8 and B=32 over 1024 cache slots;
+     K6 and K7 take microseconds, less than their launch, so they are timed
+     with the device's queue filled first (``device_ms``);
+  4c. the decode main paths: ``AudioToken(Tokenizers.acoustic).decode`` of
+     30 s of codes and ``AcousticDecoder`` at 8 and 32 x 30 s (real-time
+     factors, peak memory), then ``AudioToken(Tokenizers.semantic_m)
+     .decode_batch`` of 8 sources of 250 ids at the defaults (bf16,
+     sampled, 1024 new tokens), with wall time, real-time factor and AR
+     tokens/s; K6 and each K7 entry launch 12 times per decode step, K5 24
+     times per Bark-fine pass, and K2 runs in the acoustic decoder;
+  5c. the decode golden gate at full width, f32 and ``highest``, against
+     ``tests/torch_goldens/decode_semantic_m_s0.npz`` (made by the JAX
+     package): greedy AR tokens, argmax fine codes, and the waveforms.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -48,12 +63,26 @@ import verify_tpu_parity as parity  # noqa: E402  (numpy-only at import)
 from golden_cases import WEIGHT_SEEDS, api_clips, battery  # noqa: E402
 
 from audiotoken_tpu_torch import AudioToken, Tokenizers  # noqa: E402
+from audiotoken_tpu_torch.configs import COMMONS  # noqa: E402
+from audiotoken_tpu_torch.decoders import AcousticDecoder, Wav2VecBertDecoder  # noqa: E402
 from audiotoken_tpu_torch.encoders import AcousticEncoder, Wav2VecBertEncoder  # noqa: E402
 from audiotoken_tpu_torch.io.wavfile import write_wav  # noqa: E402
 from audiotoken_tpu_torch.ops import _build  # noqa: E402
+from audiotoken_tpu_torch.ops.decode_attention import (  # noqa: E402
+    decode_attention,
+    decode_attention_plain,
+)
+from audiotoken_tpu_torch.ops.decode_step import (  # noqa: E402
+    decode_ffn,
+    decode_ffn_plain,
+    decode_qkv,
+    decode_qkv_plain,
+)
 from audiotoken_tpu_torch.ops.flash_attention import (  # noqa: E402
+    flash_attention_plain,
     flash_attention_relkey,
     flash_attention_relkey_plain,
+    noncausal_attention_plain,
 )
 from audiotoken_tpu_torch.ops.lstm import lstm_layer, lstm_layer_plain  # noqa: E402
 from audiotoken_tpu_torch.ops.rvq import rvq_encode, rvq_encode_plain  # noqa: E402
@@ -65,8 +94,14 @@ SR_M = 16_000  # semantic_m
 KERNEL_ATOL = 1e-4  # K1, K2, K4: kernel vs plain, both IEEE f32, other sum order
 RVQ_AGREEMENT = 0.999  # K3: late-codebook near-ties may flip (RVQ contract)
 ACOUSTIC_KERNELS = (seanet_front, lstm_layer, rvq_encode)
-KERNELS = ACOUSTIC_KERNELS + (flash_attention_relkey,)
+DECODE_KERNELS = (flash_attention_plain, decode_attention, decode_qkv, decode_ffn)
+KERNELS = ACOUSTIC_KERNELS + (flash_attention_relkey,) + DECODE_KERNELS
 W2V_BLOCKS = 19  # conformer blocks a semantic_m forward runs, one K4 launch each
+GPT_LAYERS, FINE_LAYERS = 12, 24  # K6/K7 launches per decode step, K5 per fine pass
+# bf16 kernel vs plain version: both accumulate in f32 and round at the same
+# points, so they differ by about one bf16 unit of the output's scale
+BF16_SHARE = 2**-6
+GOLDEN_MARGIN = 1e-4  # a greedy AR step whose top-1/top-2 logit gap is below may flip
 
 
 def say(*args):
@@ -88,6 +123,24 @@ def cuda_ms(fn, warmup=2, reps=5):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, n=20, warmup=2):
+    """Device time of one ``fn`` in ms, for kernels shorter than their
+    launch: the device first sleeps while the host queues ``n`` calls, so
+    the events around them see device time only, not the host's."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # ~10 ms of the device's clock
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def phase1_device():
@@ -392,6 +445,249 @@ def phase5b_semantic_m_goldens(dev, tmp, at):
         raise AssertionError("semantic_m golden gate failed: " + "; ".join(failures))
 
 
+def _randn(dev, shape, dtype, seed, scale=1.0):
+    a = np.random.default_rng(seed).standard_normal(shape).astype(np.float32) * scale
+    return torch.from_numpy(a).to(dev).to(dtype)
+
+
+def _compare(name, out, ref, dt):
+    """max |kernel - plain|, raising past the stated bound for the dtype."""
+    err = (out.float() - ref.float()).abs().max().item()
+    bound = KERNEL_ATOL if dt == torch.float32 else BF16_SHARE * ref.float().abs().max().item()
+    if not err <= bound:
+        raise AssertionError(f"{name} {dt} differs from its plain version by {err} > {bound}")
+    return err
+
+
+def phase3c_decode_kernels(dev):
+    """K5, K6 and K7 against their plain versions at the decode paths'
+    shapes, in bf16 (the default stage dtype) and f32 (the parity path)."""
+    res = {"flash_attention_plain": {}, "decode_attention": {}, "decode_qkv": {},
+           "decode_ffn": {}}
+
+    def record(name, dt, B, err, ms, plain_ms):
+        r = res[name]
+        if dt == torch.float32:
+            r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+        else:
+            r["max_abs_err_bf16"] = max(r.get("max_abs_err_bf16", 0.0), err)
+        if dt == torch.bfloat16 and B == 8:  # the semantic decode main path's shape
+            r["ms"], r["plain_ms"] = ms, plain_ms
+
+    for dt in (torch.bfloat16, torch.float32):
+        q = _randn(dev, (8, 16, 1024, 64), dt, 1, 0.125)
+        k, v = _randn(dev, (8, 16, 1024, 64), dt, 2), _randn(dev, (8, 16, 1024, 64), dt, 3)
+        err = _compare("K5", flash_attention_plain(q, k, v), noncausal_attention_plain(q, k, v), dt)
+        ms = cuda_ms(lambda: flash_attention_plain(q, k, v), reps=9)
+        plain_ms = cuda_ms(lambda: noncausal_attention_plain(q, k, v), reps=9)
+        say(f"[3c] K5 flash_attention_plain [8, 16, 1024, 64] {dt}: max|kernel-plain| "
+            f"{err:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
+        record("flash_attention_plain", dt, 8, err, ms, plain_ms)
+        del q, k, v
+
+        for B in (8, 32):
+            nh, L, pos = 12, 1024, 1023
+            q = _randn(dev, (B, nh, 64), dt, 4, 0.125)
+            kc, vc = _randn(dev, (B, nh, L, 64), dt, 5), _randn(dev, (B, nh, L, 64), dt, 6)
+            qkv = _randn(dev, (B, 3 * nh * 64), dt, 7)
+            kn, vn = qkv[:, nh * 64: 2 * nh * 64], qkv[:, 2 * nh * 64:]
+            start = torch.from_numpy(
+                np.random.default_rng(B).integers(0, 700, B).astype(np.int32)).to(dev)
+            start[0], start[1] = 0, pos  # a full row; a row with no valid slot
+            out = decode_attention(q, kc, vc, start, pos, kn, vn)
+            err = _compare("K6", out, decode_attention_plain(q, kc, vc, start, pos, kn, vn), dt)
+            ms = device_ms(lambda: decode_attention(q, kc, vc, start, pos, kn, vn))
+            plain_ms = device_ms(lambda: decode_attention_plain(q, kc, vc, start, pos, kn, vn))
+            say(f"[3c] K6 decode_attention B={B} x 12 heads, 1024 slots {dt}: max|kernel-plain| "
+                f"{err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+            record("decode_attention", dt, B, err, ms, plain_ms)
+
+            C = 768
+            x, a = _randn(dev, (B, C), dt, 10), _randn(dev, (B, C), dt, 11)
+            ln1, ln2 = 1 + _randn(dev, (C,), dt, 12, 0.1), 1 + _randn(dev, (C,), dt, 13, 0.1)
+            wqkv, wo = _randn(dev, (3 * C, C), dt, 14, 0.02), _randn(dev, (C, C), dt, 15, 0.02)
+            wi, w2 = _randn(dev, (4 * C, C), dt, 16, 0.02), _randn(dev, (C, 4 * C), dt, 17, 0.02)
+            qkv_args = (x, ln1, None, wqkv, None)
+            ffn_args = (x, a, wo, ln2, None, wi, w2)
+            for name, fn, plain, args in (("decode_qkv", decode_qkv, decode_qkv_plain, qkv_args),
+                                          ("decode_ffn", decode_ffn, decode_ffn_plain, ffn_args)):
+                err = _compare(f"K7 {name}", fn(*args), plain(*args), dt)
+                ms = device_ms(lambda: fn(*args))
+                plain_ms = device_ms(lambda: plain(*args))
+                say(f"[3c] K7 {name} B={B}, 768 wide {dt}: max|kernel-plain| {err:.3e}  "
+                    f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+                record(name, dt, B, err, ms, plain_ms)
+    return res
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase4c_decode(dev):
+    """The decode entry points; returns K2's and the decode kernels'
+    launch counts from this phase."""
+    rng = np.random.default_rng(9)
+    codes30 = rng.integers(0, 1024, (32, 8, 2250)).astype(np.int32)
+    at = AudioToken(Tokenizers.acoustic, num_codebooks=8, weights="random", device=dev)
+    at.load_decoder()
+    dec = at.decoder
+    dec.forward_codes(codes30[:8])  # warm up cuDNN's algorithm choice and the allocator
+    torch.cuda.synchronize()
+
+    for kern in KERNELS:
+        kern.launches = 0
+    wav = at.decode(codes30[:1])
+    if wav.shape != (1, 2250 * 320) or not np.isfinite(wav).all():
+        raise AssertionError(f"acoustic decode: {wav.shape}, finite {np.isfinite(wav).all()}")
+    for B in (8, 32):
+        torch.cuda.reset_peak_memory_stats(dev)
+        walls = []
+        for _ in range(3):
+            out, wall = _timed(lambda: dec.forward_codes(codes30[:B]))
+            walls.append(wall)
+            if tuple(out.shape) != (B, 2250 * 320) or not torch.isfinite(out).all():
+                raise AssertionError(f"AcousticDecoder B={B}: {tuple(out.shape)}")
+            del out
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        wall = statistics.median(walls)
+        say(f"[4c] AcousticDecoder B={B} x 30 s: median wall {wall * 1e3:.1f} ms (runs "
+            f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}), RTFx {B * 30.0 / wall:.1f}, "
+            f"peak device memory {peak:.2f} GiB")
+    if lstm_layer.launches < 2 * 7:
+        raise AssertionError(f"K2 launched {lstm_layer.launches} times in the acoustic decoder")
+    k2 = lstm_layer.launches
+    del at, dec
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    at = AudioToken(Tokenizers.semantic_m, weights="random", device=dev)
+    at.load_decoder()
+    sem = at.decoder
+    say(f"[4c] Wav2VecBertDecoder built (random weights, seed 0, bf16 AR and fine stages) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    sources = [np.random.default_rng(100 + i).integers(0, 2048, 250) for i in range(8)]
+    sem.max_new_tokens = 64
+    sem.decode_batch(sources, seed=1)  # warm up cuBLAS and the allocator
+    sem.max_new_tokens = 1024
+    torch.cuda.synchronize()
+
+    for kern in KERNELS:
+        kern.launches = 0
+    steps0, passes0 = sem.gpt.decode_steps, sem.bark.passes
+    torch.cuda.reset_peak_memory_stats(dev)
+    wavs, wall = _timed(lambda: at.decode_batch(sources))
+    steps, passes = sem.gpt.decode_steps - steps0, sem.bark.passes - passes0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    counts = {k.__name__: k.launches for k in DECODE_KERNELS}
+    # two more decodes of the same sources: the host's share varies
+    walls = [wall] + [_timed(lambda: at.decode_batch(sources))[1] for _ in range(2)]
+    wall = statistics.median(walls)
+    steps0 = sem.gpt.decode_steps
+    for w in wavs:
+        if (w.dtype != np.float32 or w.ndim != 2 or w.shape[0] != 1 or w.shape[1] % 320
+                or not np.isfinite(w).all()):
+            raise AssertionError(f"semantic decode output {w.shape} {w.dtype}")
+    audio_s = sum(w.shape[1] for w in wavs) / 24_000
+    say(f"[4c] AudioToken(semantic_m).decode_batch 8 x 250 ids: median wall {wall:.3f} s "
+        f"(runs {', '.join(f'{w:.3f}' for w in walls)}), audio {audio_s:.2f} s, real-time "
+        f"factor {audio_s / wall:.2f}, {steps} decode steps, {passes} fine passes, "
+        f"peak device memory {peak:.2f} GiB")
+
+    # the stages alone, and int16 output equal to the float path's bytes
+    rows, ar_wall = _timed(lambda: sem._ar_stage(sources, 7))
+    n_tok = sum(2 * r.shape[1] for r in rows)
+    steps_ar = sem.gpt.decode_steps - steps0
+    say(f"[4c] AR stage: {ar_wall:.3f} s, {n_tok} acoustic tokens kept: "
+        f"{n_tok / ar_wall:.0f} tokens/s ({steps_ar} decode steps of 8 rows, "
+        f"{steps_ar / ar_wall:.0f} steps/s)")
+    wav_f, fin_wall = _timed(lambda: sem._finish_stage(rows, 7))
+    sem.acoustic_decoder.output_dtype = "int16"
+    wav_i = sem._finish_stage(rows, 7)
+    sem.acoustic_decoder.output_dtype = "float32"
+    for f, i in zip(wav_f, wav_i):
+        ref = np.clip(np.round(np.clip(f, -0.99, 0.99) * 32768.0), -32768, 32767).astype(np.int16)
+        if i.dtype != np.int16 or not np.array_equal(i, ref):
+            raise AssertionError("int16 output differs from the float path's WAV samples")
+    say(f"[4c] fine + EnCodec stages: {fin_wall:.3f} s; int16 output equals the float "
+        f"path's WAV samples")
+
+    say(f"[4c] decode kernel launches during semantic decode: {counts}")
+    if counts["decode_attention"] < GPT_LAYERS * steps or steps < 1:
+        raise AssertionError(f"K6 launched {counts['decode_attention']} times in {steps} steps")
+    for name in ("decode_qkv", "decode_ffn"):
+        if counts[name] < GPT_LAYERS * steps:
+            raise AssertionError(f"K7 {name} launched {counts[name]} times in {steps} steps")
+    if counts["flash_attention_plain"] < FINE_LAYERS * passes or passes < 1:
+        raise AssertionError(f"K5 launched {counts['flash_attention_plain']} times "
+                             f"in {passes} passes")
+    counts["lstm_layer"] = k2
+    del at, sem
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _si_snr(est, ref):
+    est, ref = est - est.mean(), ref - ref.mean()
+    target = (est @ ref) / (ref @ ref) * ref
+    return 10 * np.log10((target @ target) / max(((est - target) ** 2).sum(), 1e-30))
+
+
+def phase5c_decode_goldens(dev):
+    g = np.load(os.path.join(HERE, "tests", "torch_goldens", "decode_semantic_m_s0.npz"))
+    dec = Wav2VecBertDecoder(weights="random", seed=0, device=dev, top_k=1, max_new_tokens=96,
+                             precision="highest", ar_dtype="float32", ar_precision="highest",
+                             fine_dtype="float32", fine_precision="highest")
+    vocab = dec.config.vocab
+    stop = vocab.stop_token[COMMONS.ACOUSTIC]
+    prompts = [p[p >= 0] for p in g["prompts"]]
+    with dec.ar_policy.numerics():
+        tokens = dec.gpt.generate_batch(prompts, max_new_tokens=96, temperature=0.8, top_k=1,
+                                        stop_token=stop, seed=0)
+    failures = []
+    for i, (row, ref, margin) in enumerate(zip(tokens, g["tokens"], g["margins"])):
+        diff = np.flatnonzero(row != ref)
+        if not diff.size:
+            say(f"[5c] AR row {i}: {int((ref >= 0).sum())} greedy tokens equal to the golden")
+            continue
+        j = int(diff[0])
+        if margin[j] < GOLDEN_MARGIN:
+            say(f"[5c] AR row {i}: first difference at step {j}, golden top-1/top-2 margin "
+                f"{margin[j]:.3e} < {GOLDEN_MARGIN}: a near-tie; row stopped there")
+        else:
+            failures.append(f"AR row {i} step {j} (margin {margin[j]:.3e})")
+            say(f"[5c] AR row {i}: differs at step {j}, margin {margin[j]:.3e} FAIL")
+
+    with dec.fine_policy.numerics():
+        fine = dec.bark.generate_fine_batch(g["coarse"], temperature=None, seed=0)
+    agree = float((fine == g["fine"]).mean())
+    say(f"[5c] fine codes from the golden coarse input: agreement {agree:.6f} (>= 0.999) "
+        f"{'ok' if agree >= 0.999 else 'FAIL'}")
+    if agree < 0.999:
+        failures.append(f"fine {agree:.6f}")
+
+    acoustic = dec.acoustic_decoder
+    wav = acoustic.forward_codes(g["fine"]).cpu().numpy()
+    acoustic.output_dtype = "int16"
+    wav_i = acoustic.forward_codes(g["fine"]).cpu().numpy()
+    for i in range(wav.shape[0]):
+        snr = _si_snr(wav[i].astype(np.float64), g["wav_f32"][i].astype(np.float64))
+        lsb = float((np.abs(wav_i[i].astype(np.int32) - g["wav_i16"][i]) <= 1).mean())
+        ok = snr >= 60.0 and lsb >= 0.9999
+        say(f"[5c] waveform row {i}: SI-SNR {snr:.1f} dB (>= 60), int16 within 1 LSB on "
+            f"{lsb:.6f} (>= 0.9999) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"waveform row {i} {snr:.1f} dB {lsb:.6f}")
+    del dec
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("decode golden gate failed: " + "; ".join(failures))
+
+
 def main():
     phase1_device()
     dev = torch.device("cuda", 0)
@@ -399,11 +695,18 @@ def main():
     with get_policy("highest").numerics():
         res = phase3_kernels(dev)
         res.update(phase3b_flash_attention(dev))
+        res.update(phase3c_decode_kernels(dev))
     with tempfile.TemporaryDirectory() as tmp:
         counts = phase4_main_path(dev, tmp)
         phase5_goldens(dev, tmp)
         counts["flash_attention_relkey"], at = phase4b_semantic_m(dev, tmp)
         phase5b_semantic_m_goldens(dev, tmp, at)
+        del at
+        torch.cuda.empty_cache()
+    decode_counts = phase4c_decode(dev)
+    phase5c_decode_goldens(dev)
+    say(f"[4c] K2 launches in the acoustic decoder: {decode_counts.pop('lstm_layer')}")
+    counts.update(decode_counts)
     rows = [
         ("seanet_front", "seanet_front", "audiotoken_tpu_torch/csrc/seanet_front.cu",
          "audiotoken_tpu/ops/seanet_pallas.py:124"),
@@ -414,6 +717,15 @@ def main():
         ("flash_attention_relkey", "flash_attention_relkey",
          "audiotoken_tpu_torch/csrc/flash_attention.cu",
          "audiotoken_tpu/ops/flash_attention.py:519"),
+        ("flash_attention_plain", "flash_attention_plain",
+         "audiotoken_tpu_torch/csrc/flash_attention_plain.cu",
+         "audiotoken_tpu/ops/flash_attention.py:287"),
+        ("decode_attention", "decode_attention", "audiotoken_tpu_torch/csrc/decode_attention.cu",
+         "audiotoken_tpu/ops/decode_attention.py:142"),
+        ("decode_qkv", "decode_qkv", "audiotoken_tpu_torch/csrc/decode_step.cu",
+         "audiotoken_tpu/ops/decode_step_fused.py:108"),
+        ("decode_ffn", "decode_ffn", "audiotoken_tpu_torch/csrc/decode_step.cu",
+         "audiotoken_tpu/ops/decode_step_fused.py:131"),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

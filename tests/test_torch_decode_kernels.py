@@ -1,0 +1,223 @@
+"""The plain versions of K5, K6 and K7 against the JAX package's Pallas
+kernels (interpret mode) on the CPU.
+
+Tolerances: f32 differs only by the order of sums (2e-5 for K5 as in the
+JAX flash test, 1e-5 for the small K6/K7 products). In bf16 both sides
+round at the same places except where the Pallas kernels round the
+softmax weights to bf16 before the value product (K5, K6) or use a
+rational erf (K7), so a bf16 result may differ by a few bf16 units of its
+own scale: 2^-6 of the largest output for K5 and K6, 2^-5 for K7, whose
+GELU input rounds twice.
+The CUDA kernels are held against these plain versions on the card
+(tests/test_torch_kernels_cuda.py, chip_smoke.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from audiotoken_tpu.ops.decode_attention import decode_attention as jax_decode_attention
+from audiotoken_tpu.ops.decode_attention import decode_attention_fused as jax_decode_fused
+from audiotoken_tpu.ops.decode_step_fused import decode_ffn as jax_decode_ffn
+from audiotoken_tpu.ops.decode_step_fused import decode_qkv as jax_decode_qkv
+from audiotoken_tpu.ops.flash_attention import _flash_attention_plain as jax_flash_plain
+from audiotoken_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+from audiotoken_tpu_torch.ops.decode_step import (
+    decode_ffn,
+    decode_ffn_plain,
+    decode_qkv,
+    decode_qkv_plain,
+)
+from audiotoken_tpu_torch.ops.flash_attention import flash_attention_plain, noncausal_attention_plain
+
+DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def _to_jax(t: torch.Tensor, jdt):
+    return jnp.asarray(t.float().numpy()).astype(jdt)
+
+
+def _close(out: torch.Tensor, ref, name: str, atol_f32: float, bf16_share: float):
+    out = out.float().numpy()
+    ref = np.asarray(ref, np.float32)
+    assert out.shape == ref.shape
+    atol = atol_f32 if bf16_share is None else bf16_share * float(np.abs(ref).max())
+    np.testing.assert_allclose(out, ref, rtol=0, atol=atol, err_msg=name)
+
+
+# --- K5 ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_k5_plain_matches_pallas(dt):
+    tdt, jdt = DTYPES[dt]
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 4, 256, 64)).astype(np.float32)).to(tdt)
+               for _ in range(3))
+    out = noncausal_attention_plain((q * 0.125).to(tdt), k, v)  # the port takes q pre-scaled
+    assert out.dtype == tdt and out.shape == (2, 4, 256, 64)
+    ref = jax_flash_plain(_to_jax(q, jdt), _to_jax(k, jdt), _to_jax(v, jdt), interpret=True)
+    _close(out, ref, "K5", 2e-5, None if dt == "f32" else 2**-6)
+
+
+def test_k5_cpu_wrapper_runs_plain_and_counts_no_launch():
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 70, 64)).astype(np.float32))
+               for _ in range(3))
+    before = flash_attention_plain.launches
+    out = flash_attention_plain(q, k, v)
+    assert flash_attention_plain.launches == before
+    assert torch.equal(out, noncausal_attention_plain(q, k, v))
+
+
+# --- K6 ---------------------------------------------------------------------
+
+B6, NH, DH, L6, POS = 4, 3, 64, 40, 33
+
+
+def _k6_inputs(tdt):
+    rng = np.random.default_rng(7)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(tdt)
+
+    q = (t(B6, NH, DH) * 0.125).to(tdt)
+    k_cache, v_cache = t(B6, NH, L6, DH), t(B6, NH, L6, DH)
+    k_new, v_new = t(B6, NH * DH), t(B6, NH * DH)
+    # a prompt that fills its bucket, a ragged start, one real token, none
+    start = torch.tensor([0, 9, POS - 1, POS], dtype=torch.int32)
+    return q, k_cache, v_cache, start, k_new, v_new
+
+
+def _jax_layout(k_cache, v_cache, start, jdt):
+    kj = _to_jax(k_cache.permute(0, 1, 3, 2).reshape(B6, NH * DH, L6), jdt)
+    vj = _to_jax(v_cache.permute(0, 2, 1, 3).reshape(B6, L6, NH * DH), jdt)
+    slots = np.arange(L6)[None, :]
+    s = start.numpy()[:, None]
+    valid = jnp.asarray(((slots >= s) & (slots < POS)).astype(np.float32))
+    return kj, vj, valid
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_k6_plain_matches_fused_pallas(dt):
+    tdt, jdt = DTYPES[dt]
+    q, k_cache, v_cache, start, k_new, v_new = _k6_inputs(tdt)
+    kj, vj, valid = _jax_layout(k_cache, v_cache, start, jdt)
+    ref = jax_decode_fused(_to_jax(q, jdt), kj, vj, valid, _to_jax(k_new, jdt),
+                           _to_jax(v_new, jdt), interpret=True)
+    out = decode_attention_plain(q, k_cache, v_cache, start, POS, k_new, v_new)
+    assert out.dtype == tdt
+    _close(out, ref, "K6 fused", 1e-5, None if dt == "f32" else 2**-6)
+    # the row with no valid slot attends to itself alone
+    torch.testing.assert_close(out[3].float(), v_new[3].float(), rtol=0, atol=0)
+
+
+def test_k6_plain_matches_partials_after_combine():
+    """The partials form plus the caller's self-term combine
+    (nn/gpt.py's "kernel" decode path) is the same function, in f32."""
+    q, k_cache, v_cache, start, k_new, v_new = _k6_inputs(torch.float32)
+    kj, vj, valid = _jax_layout(k_cache, v_cache, start, jnp.float32)
+    acc, m, l = jax_decode_attention(jnp.asarray(q.numpy()), kj, vj, valid, interpret=True)
+    qn, kn, vn = q.numpy(), k_new.numpy().reshape(B6, NH, DH), v_new.numpy().reshape(B6, NH, DH)
+    s1 = (qn * kn).sum(-1, keepdims=True)
+    mx = np.maximum(np.asarray(m), s1)
+    alpha, w = np.exp(np.asarray(m) - mx), np.exp(s1 - mx)
+    ref = (np.asarray(acc) * alpha + w * vn) / (np.asarray(l) * alpha + w)
+    out = decode_attention_plain(q, k_cache, v_cache, start, POS, k_new, v_new)
+    np.testing.assert_allclose(out.numpy(), ref.reshape(B6, NH * DH), rtol=0, atol=1e-5)
+
+
+def test_k6_appends_the_token_and_reads_only_older_slots():
+    q, k_cache, v_cache, start, k_new, v_new = _k6_inputs(torch.float32)
+    k2, v2 = k_cache.clone(), v_cache.clone()
+    k2[:, :, POS + 1:] = float("nan")  # slots past pos are never read
+    out = decode_attention(q, k2, v2, start, POS, k_new, v_new)  # CPU: the plain version
+    ref = decode_attention_plain(q, k_cache.clone(), v_cache.clone(), start, POS, k_new, v_new)
+    assert torch.equal(out, ref)
+    assert torch.equal(k2[:, :, POS], k_new.view(B6, NH, DH))
+    assert torch.equal(v2[:, :, POS], v_new.view(B6, NH, DH))
+    assert torch.equal(k2[:, :, :POS], k_cache[:, :, :POS])
+
+
+# --- K7 ---------------------------------------------------------------------
+
+B7, C7 = 3, 64
+
+
+def _k7_weights(tdt, bias: bool, seed=8):
+    """(weights in torch layout, x, a) for a C7-wide decode step."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=0.1):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(tdt)
+
+    def b(n):
+        return t(n) if bias else None
+
+    w = {"ln1_w": 1 + t(C7), "ln1_b": b(C7), "w_qkv": t(3 * C7, C7), "b_qkv": b(3 * C7),
+         "w_out": t(C7, C7), "b_out": b(C7), "ln2_w": 1 + t(C7), "ln2_b": b(C7),
+         "w_in": t(4 * C7, C7), "b_in": b(4 * C7), "w_out2": t(C7, 4 * C7), "b_out2": b(C7)}
+    return w, t(B7, C7, scale=1.0), t(B7, C7, scale=1.0)
+
+
+def _j(t, jdt, transpose=False):
+    if t is None:
+        return None
+    return _to_jax(t.t() if transpose else t, jdt)
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_k7_qkv_plain_matches_pallas(dt, bias):
+    tdt, jdt = DTYPES[dt]
+    w, x, _ = _k7_weights(tdt, bias)
+    out = decode_qkv_plain(x, w["ln1_w"], w["ln1_b"], w["w_qkv"], w["b_qkv"])
+    ref = jax_decode_qkv(_j(x, jdt), _j(w["ln1_w"], jdt), _j(w["ln1_b"], jdt),
+                         _j(w["w_qkv"], jdt, True), _j(w["b_qkv"], jdt), interpret=True)
+    assert out.dtype == tdt
+    _close(out, ref, "decode_qkv", 1e-5, None if dt == "f32" else 2**-5)
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_k7_ffn_plain_matches_pallas(dt, bias):
+    tdt, jdt = DTYPES[dt]
+    w, x, a = _k7_weights(tdt, bias)
+    out = decode_ffn_plain(x, a, w["w_out"], w["ln2_w"], w["ln2_b"], w["w_in"], w["w_out2"],
+                           w["b_out"], w["b_in"], w["b_out2"])
+    ref = jax_decode_ffn(_j(x, jdt), _j(a, jdt), _j(w["w_out"], jdt, True), _j(w["ln2_w"], jdt),
+                         _j(w["ln2_b"], jdt), _j(w["w_in"], jdt, True),
+                         _j(w["w_out2"], jdt, True), _j(w["b_out"], jdt), _j(w["b_in"], jdt),
+                         _j(w["b_out2"], jdt), interpret=True)
+    assert out.dtype == tdt
+    _close(out, ref, "decode_ffn", 1e-5, None if dt == "f32" else 2**-5)
+
+
+def test_k7_cpu_wrappers_run_plain_and_count_no_launch():
+    w, x, a = _k7_weights(torch.float32, True)
+    before = (decode_qkv.launches, decode_ffn.launches)
+    qkv = decode_qkv(x, w["ln1_w"], w["ln1_b"], w["w_qkv"], w["b_qkv"])
+    y = decode_ffn(x, a, w["w_out"], w["ln2_w"], w["ln2_b"], w["w_in"], w["w_out2"],
+                   w["b_out"], w["b_in"], w["b_out2"])
+    assert (decode_qkv.launches, decode_ffn.launches) == before
+    assert torch.equal(qkv, decode_qkv_plain(x, w["ln1_w"], w["ln1_b"], w["w_qkv"], w["b_qkv"]))
+    assert y.shape == (B7, C7)
+
+
+def test_wrappers_refuse_other_devices():
+    """Neither a CPU fallback nor a kernel for a device that is not CUDA."""
+    m = torch.empty((1, 2, 8, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention_plain(m, m, m)
+    q = torch.empty((1, 2, 64), device="meta")
+    cache = torch.empty((1, 2, 4, 64), device="meta")
+    row = torch.empty((1, 128), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        decode_attention(q, cache, cache, torch.empty(1, device="meta"), 1, row, row)
+    x = torch.empty((1, 64), device="meta")
+    w = torch.empty((64, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        decode_qkv(x, x[0], None, w)
+    with pytest.raises(ValueError, match="unsupported device"):
+        decode_ffn(x, x, w, x[0], None, w, w)

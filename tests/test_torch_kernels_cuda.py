@@ -196,3 +196,164 @@ def test_semantic_m_encoder_runs_the_kernel(dev):
     assert ids.shape == (2, 1, 64) and ids.dtype == np.int16
     ref = Wav2VecBertEncoder(weights="random", seed=0, device="cpu")(x)
     assert (ids == ref).mean() >= 0.99
+
+
+# --- semantic decode: K5, K6, K7 --------------------------------------------
+
+# bf16: kernel and plain version both compute in f32 and round once (K5, K6)
+# or at the same staging points (K7), so they differ by a bf16 unit of the
+# output's scale where a sum in another order crosses a rounding boundary.
+BF16_SHARE = {"K5": 2**-7, "K6": 2**-7, "K7": 2**-6}
+DECODE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _assert_kernel_close(out, ref, kernel, dt):
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    diff = (out.float() - ref.float()).abs().max().item()
+    bound = ATOL if dt == "f32" else BF16_SHARE[kernel] * ref.float().abs().max().item()
+    assert diff <= bound, (kernel, dt, diff, bound)
+
+
+def _randn(dev, shape, dtype, seed, scale=1.0):
+    a = np.random.default_rng(seed).standard_normal(shape).astype(np.float32) * scale
+    return torch.from_numpy(a).to(dev).to(dtype)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,T", [(1, 1024), (8, 1024), (32, 512), (2, 77)])
+def test_flash_attention_plain_matches_plain(dev, B, T, dt):
+    from audiotoken_tpu_torch.ops.flash_attention import (
+        flash_attention_plain,
+        noncausal_attention_plain,
+    )
+
+    dtype = DECODE_DTYPES[dt]
+    q = _randn(dev, (B, 16, T, 64), dtype, 1, 0.125)
+    k = _randn(dev, (B, 16, T, 64), dtype, 2)
+    v = _randn(dev, (B, 16, T, 64), dtype, 3)
+    before = flash_attention_plain.launches
+    out = flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention_plain.launches == before + 1
+    _assert_kernel_close(out, noncausal_attention_plain(q, k, v), "K5", dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B", [1, 8, 32])
+def test_decode_attention_matches_plain(dev, B, dt):
+    from audiotoken_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+
+    dtype, nh, L, pos = DECODE_DTYPES[dt], 12, 1024, 1000
+    rng = np.random.default_rng(B)
+    q = _randn(dev, (B, nh, 64), dtype, 4, 0.125)
+    kc = _randn(dev, (B, nh, L, 64), dtype, 5)
+    vc = _randn(dev, (B, nh, L, 64), dtype, 6)
+    qkv = _randn(dev, (B, 3 * nh * 64), dtype, 7)
+    k_new, v_new = qkv[:, nh * 64: 2 * nh * 64], qkv[:, 2 * nh * 64:]  # strided rows
+    start = rng.integers(0, 600, B).astype(np.int32)
+    start[0] = 0  # a prompt that fills its bucket
+    if B > 1:
+        start[1] = pos - 1  # one real token before pos
+    if B > 2:
+        start[2] = pos  # no valid slot: the self term alone
+    start = torch.from_numpy(start).to(dev)
+    k2, v2 = kc.clone(), vc.clone()
+    before = decode_attention.launches
+    out = decode_attention(q, k2, v2, start, pos, k_new, v_new)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    ref = decode_attention_plain(q, kc, vc, start, pos, k_new, v_new)
+    _assert_kernel_close(out, ref, "K6", dt)
+    assert torch.equal(k2, kc) and torch.equal(v2, vc)  # both appended slot pos
+    if B > 2:
+        assert torch.equal(out[2], v_new[2])
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B", [1, 8, 32, 40])
+def test_decode_step_matches_plain(dev, B, dt, bias):
+    from audiotoken_tpu_torch.ops.decode_step import (
+        decode_ffn,
+        decode_ffn_plain,
+        decode_qkv,
+        decode_qkv_plain,
+    )
+
+    dtype, C = DECODE_DTYPES[dt], 768
+
+    def w(shape, seed, scale=0.02):
+        return _randn(dev, shape, dtype, seed, scale)
+
+    x, a = w((B, C), 10, 1.0), w((B, C), 11, 1.0)
+    ln1w, ln2w = 1 + w((C,), 12, 0.1), 1 + w((C,), 13, 0.1)
+    ln1b, ln2b = (w((C,), 14, 0.1), w((C,), 15, 0.1)) if bias else (None, None)
+    wqkv, wo, wi, w2 = w((3 * C, C), 16), w((C, C), 17), w((4 * C, C), 18), w((C, 4 * C), 19)
+    bq, bo, bi, b2 = ((w((3 * C,), 20), w((C,), 21), w((4 * C,), 22), w((C,), 23)) if bias
+                      else (None,) * 4)
+    before = (decode_qkv.launches, decode_ffn.launches)
+    out = decode_qkv(x, ln1w, ln1b, wqkv, bq)
+    y = decode_ffn(x, a, wo, ln2w, ln2b, wi, w2, bo, bi, b2)
+    torch.cuda.synchronize()
+    assert (decode_qkv.launches, decode_ffn.launches) == (before[0] + 1, before[1] + 1)
+    _assert_kernel_close(out, decode_qkv_plain(x, ln1w, ln1b, wqkv, bq), "K7", dt)
+    _assert_kernel_close(y, decode_ffn_plain(x, a, wo, ln2w, ln2b, wi, w2, bo, bi, b2), "K7", dt)
+
+
+def test_decode_kernels_refuse(dev):
+    from audiotoken_tpu_torch.ops.decode_attention import decode_attention
+    from audiotoken_tpu_torch.ops.decode_step import decode_qkv
+    from audiotoken_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    q = torch.zeros((1, 2, 8, 64), device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention_plain(q, q, q)
+    qd = torch.zeros((1, 2, 64), device=dev)
+    cache = torch.zeros((1, 2, 4, 64), device=dev)
+    row = torch.zeros((1, 128), device=dev)
+    start = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="outside the cache"):
+        decode_attention(qd, cache, cache, start, 4, row, row)
+    with pytest.raises(ValueError, match="not a multiple of 8"):
+        x = torch.zeros((1, 12), device=dev)
+        decode_qkv(x, x[0], None, torch.zeros((36, 12), device=dev))
+
+
+def test_semantic_decode_runs_the_kernels(dev):
+    """A tiny-depth GPT decode and Bark-fine window on the card launch K6,
+    K7 and K5 and agree with the CPU path (greedy, f32)."""
+    from audiotoken_tpu_torch.nn.bark_fine import BarkFine, BarkFineConfig, BarkFineGenerator
+    from audiotoken_tpu_torch.nn.bark_fine import init_bark_fine_params
+    from audiotoken_tpu_torch.nn.gpt import GPT, GPTConfig, GPTSampler, init_gpt_params
+    from audiotoken_tpu_torch.ops.decode_attention import decode_attention
+    from audiotoken_tpu_torch.ops.decode_step import decode_ffn, decode_qkv
+    from audiotoken_tpu_torch.ops.flash_attention import flash_attention_plain
+    from audiotoken_tpu_torch.weights import bark_fine_from_numpy, gpt_from_numpy
+
+    gcfg = GPTConfig(n_layer=2, block_size=256, vocab_size=512)
+    gstate = gpt_from_numpy(init_gpt_params(np.random.default_rng(0), gcfg))
+    prompts = [np.arange(5, 40), np.arange(7, 9)]
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        m = GPT(gcfg)
+        m.load_state_dict(gstate)
+        before = (decode_attention.launches, decode_qkv.launches, decode_ffn.launches)
+        outs.append(GPTSampler(m.to(d)).generate_batch(prompts, max_new_tokens=20, top_k=1))
+        if d.type == "cuda":
+            n = (decode_attention.launches - before[0], decode_qkv.launches - before[1],
+                 decode_ffn.launches - before[2])
+            assert n == (2 * 19,) * 3, n
+    assert (outs[0] == outs[1]).mean() >= 0.9
+
+    bcfg = BarkFineConfig(n_layer=2, block_size=128, max_history=64)
+    bstate = bark_fine_from_numpy(init_bark_fine_params(np.random.default_rng(1), bcfg))
+    coarse = np.random.default_rng(2).integers(0, 1024, (2, 2, 150))
+    fines = []
+    for d in (dev, torch.device("cpu")):
+        m = BarkFine(bcfg)
+        m.load_state_dict(bstate)
+        before = flash_attention_plain.launches
+        fines.append(BarkFineGenerator(m.to(d)).generate_fine_batch(coarse, temperature=None))
+        if d.type == "cuda":
+            assert flash_attention_plain.launches - before == 2 * 2 * 6  # layers x windows x cbs
+    assert (fines[0] == fines[1]).mean() >= 0.99

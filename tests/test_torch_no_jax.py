@@ -34,6 +34,14 @@ def test_sources_found():
     assert len(SOURCES) > 10
 
 
+@pytest.mark.parametrize("module", [
+    "decoders.py", "nn/gpt.py", "nn/bark_fine.py", "ops/decode_attention.py",
+    "ops/decode_step.py", "ops/flash_attention.py", "nn/seanet.py", "nn/rvq.py",
+])
+def test_decode_modules_are_checked(module):
+    assert ROOT / "audiotoken_tpu_torch" / module in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import(path):
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
