@@ -4,6 +4,8 @@ Runs on an NVIDIA Hopper GPU (H100), with hand-written CUDA kernels where
 the JAX package had Pallas kernels and plain PyTorch elsewhere. Ported so
 far: acoustic encode (SEANet encoder + residual VQ), through
 ``AudioToken(Tokenizers.acoustic, ...).encode`` and ``AcousticEncoder``;
+semantic_s encode (HuBERT layer 11 + k-means), through
+``AudioToken(Tokenizers.semantic_s, ...).encode`` and ``HubertEncoder``;
 semantic_m encode (fbank + w2v-BERT conformer + VQ), through
 ``AudioToken(Tokenizers.semantic_m, ...).encode`` and
 ``Wav2VecBertEncoder``; acoustic decode (``AcousticDecoder``) and semantic
@@ -19,7 +21,7 @@ at first use on a CUDA tensor (``ops/_build.py``).
 from .api import AudioToken
 from .configs import Tokenizers
 from .decoders import AcousticDecoder, HubertDecoder, Wav2VecBertDecoder
-from .encoders import AcousticEncoder, Wav2VecBertEncoder
+from .encoders import AcousticEncoder, HubertEncoder, Wav2VecBertEncoder
 from .io.audio import read_audio
 
 __version__ = "0.1.0"
@@ -29,6 +31,7 @@ __all__ = [
     "AcousticDecoder",
     "AcousticEncoder",
     "HubertDecoder",
+    "HubertEncoder",
     "Tokenizers",
     "Wav2VecBertDecoder",
     "Wav2VecBertEncoder",

@@ -1,10 +1,12 @@
-"""AudioToken facade: encode and decode for acoustic and semantic_m.
+"""AudioToken facade: encode and decode for acoustic, semantic_s and
+semantic_m.
 
 Counterpart of ``audiotoken_tpu/api.py:AudioToken``: same constructor
 arguments (plus an explicit torch ``device``, default CUDA), the same
-``encode`` surface, returning numpy int16 tokens [1, K, T] (K = 1 for
-semantic_m), and ``decode`` / ``decode_batch`` back to waveforms. What
-later slices of the port bring raises ``NotImplementedError`` until then.
+``encode`` surface, returning numpy int16 tokens [1, K, T] (K = 1 for the
+semantic tokenizers), and ``decode`` / ``decode_batch`` back to waveforms.
+What later slices of the port bring raises ``NotImplementedError`` until
+then.
 """
 
 import os
@@ -16,11 +18,18 @@ import numpy as np
 from .configs import (
     AcousticDecoderConfig,
     AcousticEncoderConfig,
+    HubertEncoderConfig,
     Tokenizers,
     Wav2VecBertConfig,
     num_codebooks_to_bandwidth,
 )
-from .encoders import AcousticEncoder, Wav2VecBertEncoder, resolve_device
+from .encoders import AcousticEncoder, HubertEncoder, Wav2VecBertEncoder, resolve_device
+
+_ENCODERS = {
+    Tokenizers.acoustic: AcousticEncoder,
+    Tokenizers.semantic_s: HubertEncoder,
+    Tokenizers.semantic_m: Wav2VecBertEncoder,
+}
 
 ArrayLike = Union[np.ndarray, "os.PathLike[str]", Path, str]
 
@@ -29,14 +38,15 @@ class AudioToken:
     """Tokenize audio to discrete ids.
 
     Args:
-        tokenizer: :class:`Tokenizers`; ``acoustic`` and ``semantic_m`` are
-            ported so far (encode and decode).
+        tokenizer: :class:`Tokenizers`: ``acoustic``, ``semantic_s`` or
+            ``semantic_m`` (encode and decode).
         device: torch device, default ``"cuda"`` (which raises when no GPU
             is present); ``"cpu"`` runs the kernels' plain versions.
         num_codebooks: acoustic codebook count in {2, 4, 8, 16}.
         weights: ``"random"`` (seeded random init) or a directory holding a
-            converted ``acoustic.npz`` (``w2vbert.npz`` + ``w2vbert_vq.npz``
-            for semantic_m).
+            converted ``acoustic.npz`` (``hubert.npz`` + ``hubert_kmeans.npz``
+            for semantic_s, ``w2vbert.npz`` + ``w2vbert_vq.npz`` for
+            semantic_m).
         precision: ``"highest"`` (IEEE f32, token parity), ``"high"`` or
             ``"default"`` (TF32 allowed), ``"bfloat16"`` (acoustic only).
     """
@@ -51,10 +61,6 @@ class AudioToken:
         seed: int = 0,
     ):
         self.tokenizer_name = Tokenizers(tokenizer)
-        if self.tokenizer_name == Tokenizers.semantic_s:
-            raise NotImplementedError(
-                "semantic_s: HuBERT encode comes with later slices of the port"
-            )
         if num_codebooks not in (2, 4, 8, 16):
             raise ValueError(f"num_codebooks must be one of [2, 4, 8, 16], got {num_codebooks}")
         self.device = resolve_device(device)
@@ -66,6 +72,8 @@ class AudioToken:
             self.model_config = AcousticEncoderConfig(
                 bandwidth=num_codebooks_to_bandwidth(num_codebooks)
             )
+        elif self.tokenizer_name == Tokenizers.semantic_s:
+            self.model_config = HubertEncoderConfig()
         else:
             self.model_config = Wav2VecBertConfig()
         self.model_sample_rate = self.model_config.model_sample_rate
@@ -74,8 +82,7 @@ class AudioToken:
 
     def load_encoder(self):
         if self.encoder is None:
-            acoustic = self.tokenizer_name == Tokenizers.acoustic
-            self.encoder = (AcousticEncoder if acoustic else Wav2VecBertEncoder)(
+            self.encoder = _ENCODERS[self.tokenizer_name](
                 config=self.model_config,
                 weights=self.weights,
                 precision=self.precision,
@@ -128,6 +135,9 @@ class AudioToken:
         return np.concatenate(out, axis=-1)
 
     def _encode_single(self, audio: np.ndarray) -> np.ndarray:
+        transform = getattr(self.encoder, "host_transform", None)
+        if transform is not None:  # semantic_s: per-utterance normalisation
+            audio = transform(audio)
         # all-valid input, passed as full lengths
         return self.encoder(audio, np.full(audio.shape[0], audio.shape[-1], np.int32))
 
@@ -138,7 +148,7 @@ class AudioToken:
 
     def load_decoder(self, **kwargs):
         """Build the decoder once; ``kwargs`` go to its constructor
-        (``AcousticDecoder`` or ``Wav2VecBertDecoder``)."""
+        (``AcousticDecoder``, ``HubertDecoder`` or ``Wav2VecBertDecoder``)."""
         if self.decoder is not None:
             return
         from . import decoders
@@ -148,11 +158,13 @@ class AudioToken:
         if self.tokenizer_name == Tokenizers.acoustic:
             cfg = AcousticDecoderConfig(bandwidth=num_codebooks_to_bandwidth(self.num_codebooks))
             self.decoder = decoders.AcousticDecoder(config=cfg, **common, **kwargs)
+        elif self.tokenizer_name == Tokenizers.semantic_s:
+            self.decoder = decoders.HubertDecoder(**common, **kwargs)
         else:
             self.decoder = decoders.Wav2VecBertDecoder(**common, **kwargs)
 
     def decode(self, tokens: ArrayLike, **kwargs) -> np.ndarray:
-        """Decode tokens [1, K, T] (acoustic) or [T] / [1, T] (semantic_m
+        """Decode tokens [1, K, T] (acoustic) or [T] / [1, T] (semantic
         ids), as an array or a ``.npy`` path, to a waveform [1, samples]
         float32 (int16 with ``output_dtype="int16"``). ``kwargs`` reach
         the decoder's constructor on the first call."""
@@ -163,7 +175,7 @@ class AudioToken:
 
     def decode_batch(self, token_seqs, **kwargs):
         """Decode several token sequences -> a list of [1, samples]
-        waveforms. semantic_m sequences decode together in every stage;
+        waveforms. Semantic sequences decode together in every stage;
         acoustic ones as one batch per run of equal shapes."""
         self.load_decoder(**kwargs)
         seqs = [np.load(t) if isinstance(t, (os.PathLike, Path, str)) else np.asarray(t)

@@ -1,10 +1,8 @@
 """Tokenizer registry, the encoders' and decoders' configurations, and the
 joint vocabulary of the semantic -> acoustic GPT.
 
-Counterpart of ``audiotoken_tpu/configs.py`` for the ported paths
-(acoustic and semantic_m encode, acoustic and semantic decode): semantic_s
-is named here so that :class:`Tokenizers` keeps its three members, but its
-encoder config arrives with its slice of the port.
+Counterpart of ``audiotoken_tpu/configs.py`` for the ported paths:
+acoustic, semantic_s and semantic_m encode, acoustic and semantic decode.
 """
 
 from dataclasses import dataclass, field
@@ -54,6 +52,20 @@ class AcousticDecoderConfig(AcousticEncoderConfig):
     """Acoustic decode defaults to 8 codebooks (6 kbps)."""
 
     bandwidth: float = 6.0
+
+
+@dataclass(frozen=True)
+class HubertEncoderConfig(EncoderConfig):
+    """mHuBERT-base layer 11 + 1000-centroid k-means (semantic_s)."""
+
+    model_id: str = "voidful/mhubert-base"
+    model_sample_rate: int = 16_000
+    model_token_rate: int = 50
+    pad_token: Optional[int] = 0
+    output_layer: int = 11
+    num_clusters: int = 1000
+    hidden_dim: int = 768
+    quantizer_artifact: str = "hubert_kmeans"
 
 
 @dataclass(frozen=True)

@@ -260,9 +260,7 @@ class _SemanticDecoderBase:
 
 
 class HubertDecoder(_SemanticDecoderBase):
-    """semantic_s decode (EN checkpoint). Its encoder is not ported yet, so
-    ``AudioToken(Tokenizers.semantic_s)`` refuses; the class decodes ids
-    that come from elsewhere."""
+    """semantic_s decode (EN checkpoint)."""
 
     def __init__(self, config=HubertDecoderConfig(), language=COMMONS.EN, **kw):
         super().__init__(config, COMMONS(language), **kw)

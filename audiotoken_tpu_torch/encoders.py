@@ -1,20 +1,23 @@
 """The encoders: host <-> device boundary, bucketing, dtype policy.
 
 Counterpart of ``audiotoken_tpu/encoders.py``: ``AcousticEncoder`` gives
-numpy int16 codes [B, K, T] at 75 frames per second, ``Wav2VecBertEncoder``
-(semantic_m) int16 ids [B, 1, T] at 50 per second.
+numpy int16 codes [B, K, T] at 75 frames per second, ``HubertEncoder``
+(semantic_s) and ``Wav2VecBertEncoder`` (semantic_m) int16 ids [B, 1, T]
+at 50 per second.
 """
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 
 import torch.nn.functional as F
 
-from .configs import AcousticEncoderConfig, Wav2VecBertConfig
+from .configs import AcousticEncoderConfig, HubertEncoderConfig, Wav2VecBertConfig
 from .nn.conformer import W2VBertConfig, W2VBertFeatures
 from .nn.fbank import FbankConfig, fbank_features
+from .nn.hubert import HubertConfig, HubertFeatures, feature_lengths
 from .nn.rvq import ResidualVQ, RVQConfig
 from .nn.seanet import SeanetConfig, SeanetEncoder
 from .ops.lookup import nearest_centroid
@@ -23,7 +26,9 @@ from .runtime.precision import get_policy
 from .weights import (
     acoustic_from_numpy,
     get_acoustic_params,
+    get_hubert_params,
     get_w2vbert_params,
+    hubert_from_numpy,
     w2vbert_from_numpy,
 )
 
@@ -86,6 +91,25 @@ def _expand_mask(mask: torch.Tensor, T: int) -> torch.Tensor:
     return mask
 
 
+def _to_device(encoder, input_batch, attention_mask, who: str):
+    """Host side of the semantic encoders: the batch as f32 or int16 PCM,
+    its length checked against ``encoder._min_samples``, padded to a
+    bucket, and sent with its mask ([B] lengths where it can be) ->
+    (audio, mask on the device, samples per row)."""
+    audio = np.asarray(input_batch)
+    if audio.dtype != np.int16:
+        audio = audio.astype(np.float32)
+    n = audio.shape[-1]
+    _require_min_samples(n, encoder._min_samples, encoder.config.model_sample_rate, who)
+    padded = pad_to_bucket(audio, encoder.buckets, encoder.config.pad_token or 0)
+    mask = _mask_to_lengths(attention_mask, audio.shape)
+    if mask.ndim == 2:
+        mask = np.pad(mask, ((0, 0), (0, padded.shape[-1] - mask.shape[-1])))
+    x = torch.from_numpy(np.ascontiguousarray(padded)).to(encoder.device)
+    m = torch.from_numpy(np.ascontiguousarray(mask)).to(encoder.device)
+    return x, m, n
+
+
 class AcousticEncoder:
     """Waveform -> EnCodec RVQ codes [B, num_codebooks, T] int16 at 75 fps.
 
@@ -141,6 +165,113 @@ class AcousticEncoder:
         x = torch.from_numpy(np.ascontiguousarray(padded)).to(self.device)
         codes = _run_subbatched(self._forward, self.max_device_batch, x)
         return codes[:, :, : math.ceil(n / self.hop)].cpu().numpy()
+
+
+class HubertEncoder:
+    """mHuBERT layer-11 features -> k-means-1000 ids [B, 1, T] int16 at 50
+    per second (semantic_s).
+
+    float32 input must be normalised per utterance on the host first
+    (:meth:`host_transform`, as ``AudioToken.encode`` does). Raw int16 PCM
+    at 16 kHz is normalised on the device instead: scaled by the exact
+    1/2^15, then zero mean and unit variance over each row's valid samples.
+    ``attn_impl`` picks the attention of the 11 layers: ``"flash"`` (kernel
+    K4 in its no-rel form on a CUDA device, its plain version on the CPU)
+    or ``"xla"`` (plain attention over materialised [B, 12, T, T] scores);
+    None takes ``HubertConfig``'s default, the faster of the two on the
+    H100 (PERF.md).
+    """
+
+    @staticmethod
+    def host_transform(waveform: np.ndarray) -> np.ndarray:
+        """Per-utterance zero-mean, unit-variance normalisation of float
+        audio (the reference's Wav2Vec2FeatureExtractor), on the host."""
+        waveform = np.asarray(waveform, np.float32)
+        mu = waveform.mean(axis=-1, keepdims=True)
+        var = waveform.var(axis=-1, keepdims=True)
+        return (waveform - mu) / np.sqrt(var + 1e-7)
+
+    def __init__(
+        self,
+        config: HubertEncoderConfig = HubertEncoderConfig(),
+        weights: str = "artifacts",
+        precision: str = "highest",
+        seed: int = 0,
+        device="cuda",
+        quantize: bool = True,
+        attn_impl: Optional[str] = None,
+    ):
+        if precision in ("mixed", "bfloat16"):
+            raise NotImplementedError(
+                f'precision="{precision}": semantic_s runs in f32 (K4 takes f32); use '
+                '"highest", "high" or "default"'
+            )
+        self.device = resolve_device(device)
+        self.config = config
+        self.policy = get_policy(precision)
+        self.quantize = quantize
+        self.model_cfg = HubertConfig() if attn_impl is None else HubertConfig(attn_impl=attn_impl)
+
+        params, centroids = get_hubert_params(weights, seed, config)
+        state = hubert_from_numpy(params, config.output_layer)
+        del params
+        with torch.device("meta"):
+            model = HubertFeatures(self.model_cfg, config.output_layer)
+        model.load_state_dict(state, assign=True)
+        self.model = model.to(self.device).eval().requires_grad_(False)
+        self.centroids = torch.from_numpy(centroids).to(self.device)
+        self.buckets = default_buckets(config.model_sample_rate, 320)
+        # Larger batches run as sub-batches of this many rows; 32 x 30 s fits
+        # the 80 GB card in both attention forms (PERF.md).
+        self.max_device_batch = 32
+        # the smallest input that gives one frame: the conv stack inverted
+        # (400 samples = 25 ms)
+        m = 1
+        for k, s in zip(reversed(self.model_cfg.conv_kernel),
+                        reversed(self.model_cfg.conv_stride)):
+            m = (m - 1) * s + k
+        self._min_samples = m
+
+    def _forward(self, audio: torch.Tensor, mask: torch.Tensor, quantize: bool) -> torch.Tensor:
+        """[B, N] f32 (normalised) or int16 and a [B] lengths or [B, N] mask
+        on the device -> ids [B, T'] int16, or features [B, T', 768] f32."""
+        with torch.inference_mode(), self.policy.numerics():
+            mask = _expand_mask(mask, audio.shape[-1])
+            if audio.dtype == torch.int16:
+                # masked per-row normalisation; /2^15 first, so that the 1e-7
+                # eps acts in the host path's value domain
+                a = audio.float() * (1.0 / 32768.0)
+                n = mask.sum(dim=-1, keepdim=True).clamp_min(1.0)
+                mu = (a * mask).sum(dim=-1, keepdim=True) / n
+                var = ((a - mu).square() * mask).sum(dim=-1, keepdim=True) / n
+                audio = (a - mu) / torch.sqrt(var + 1e-7) * mask
+            feats = self.model(audio, mask)
+            if not quantize:
+                return feats
+            feats = F.layer_norm(feats, feats.shape[-1:], eps=1e-5)  # affine-free
+            return nearest_centroid(feats, self.centroids).to(torch.int16)
+
+    def _run(self, input_batch, attention_mask, quantize: bool):
+        x, m, n = _to_device(self, input_batch, attention_mask, "HubertEncoder")
+        out = _run_subbatched(lambda a, mk: self._forward(a, mk, quantize),
+                              self.max_device_batch, x, m)
+        return out, feature_lengths(n, self.model_cfg)
+
+    def dispatch(self, input_batch: np.ndarray, attention_mask=None):
+        """Encode without waiting for the device -> (device ids [B, T'],
+        n_valid_frames).
+
+        ``attention_mask`` may be [B] int lengths or a [B, T] mask: a
+        valid-prefix mask is sent as lengths, any other mask whole."""
+        return self._run(input_batch, attention_mask, quantize=True)
+
+    def __call__(self, input_batch: np.ndarray, attention_mask=None) -> np.ndarray:
+        """[B, T] float32 (normalised) or int16 PCM -> ids [B, 1, T'] int16,
+        or, with ``quantize=False``, layer-11 features [B, T', 768] f32."""
+        out, n_frames = self._run(input_batch, attention_mask, quantize=self.quantize)
+        if not self.quantize:
+            return out[:, :n_frames].cpu().numpy()
+        return out[:, None, :n_frames].cpu().numpy()
 
 
 class Wav2VecBertEncoder:
@@ -213,20 +344,9 @@ class Wav2VecBertEncoder:
             return nearest_centroid(feats, self.codebook).to(torch.int16)
 
     def _run(self, input_batch, attention_mask, pad_to_multiple_of: int, quantize: bool):
-        audio = np.asarray(input_batch)
-        if audio.dtype != np.int16:
-            audio = audio.astype(np.float32)
-        n = audio.shape[-1]
-        _require_min_samples(n, self._min_samples, self.config.model_sample_rate,
-                             "Wav2VecBertEncoder")
-        padded = pad_to_bucket(audio, self.buckets, self.config.pad_token or 0)
-        mask = _mask_to_lengths(attention_mask, audio.shape)
-        if mask.ndim == 2:
-            mask = np.pad(mask, ((0, 0), (0, padded.shape[-1] - mask.shape[-1])))
+        x, m, n = _to_device(self, input_batch, attention_mask, "Wav2VecBertEncoder")
         # 50 tokens/s: one token per 2 fbank frames (hop 160 * stride 2)
         n_frames = (1 + (n - self.fbank_cfg.frame_length) // self.fbank_cfg.hop_length) // 2
-        x = torch.from_numpy(np.ascontiguousarray(padded)).to(self.device)
-        m = torch.from_numpy(np.ascontiguousarray(mask)).to(self.device)
         out = _run_subbatched(
             lambda a, mk: self._forward(a, mk, pad_to_multiple_of, quantize),
             self.max_device_batch, x, m,

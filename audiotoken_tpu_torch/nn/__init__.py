@@ -1,2 +1,2 @@
-"""Models as PyTorch modules: the SEANet encoder, the residual VQ, the
-fbank front-end and the w2v-BERT conformer."""
+"""Models as PyTorch modules: SEANet, the residual VQ, the fbank
+front-end, the w2v-BERT conformer, HuBERT, the GPT and Bark-fine."""

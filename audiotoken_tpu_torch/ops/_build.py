@@ -44,6 +44,7 @@ SIGNATURES = {
     **{f"decode_attention_{t}": (_P,) * 7 + (_I,) * 5 for t in ("f32", "bf16")},
     **{f"decode_qkv_{t}": (_P,) * 6 + (_I,) * 3 + (_F,) for t in ("f32", "bf16")},
     **{f"decode_ffn_{t}": (_P,) * 13 + (_I,) * 3 + (_F,) for t in ("f32", "bf16")},
+    **{f"attn_ablation_{t}": (_P,) * 4 + (_I,) * 4 for t in ("f32", "bf16")},
 }
 
 #: suffix of the entry points for each element type a kernel takes

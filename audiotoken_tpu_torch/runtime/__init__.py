@@ -1,1 +1,2 @@
-"""Runtime: shape bucketing and the precision policy."""
+"""Runtime: shape bucketing, the precision policy, stage timers and trace
+capture."""

@@ -1,7 +1,7 @@
 """Model parameters: a converted store, or seeded random ones.
 
-``get_acoustic_params``, ``get_w2vbert_params``, ``get_semantic_gpt_params``
-and ``get_bark_fine_params`` return the JAX package's parameter trees
+``get_acoustic_params``, ``get_hubert_params``, ``get_w2vbert_params``,
+``get_semantic_gpt_params`` and ``get_bark_fine_params`` return the JAX package's parameter trees
 (numpy, conv kernels [K, C_in, C_out], linear kernels [in, out]); the
 ``*_from_numpy`` functions are the bridges from those trees to the port's
 modules' state dicts (f32; a caller casts to its stage dtype after).
@@ -165,6 +165,76 @@ def w2vbert_from_numpy(tree, num_layers: int):
         state[f"{pre}.conv.dw_weight"] = _t(np.asarray(conv["dw_kernel"]).transpose(2, 1, 0))
         layer_norm(f"{pre}.conv.dw_layer_norm", conv["dw_layer_norm"])
         linear(f"{pre}.conv.pw2", conv["pw2"])
+    return state
+
+
+def get_hubert_params(weights: str = "artifacts", seed: int = 0, config=None):
+    """(HuBERT params, k-means centroids [num_clusters, hidden_dim]) for
+    semantic_s.
+
+    ``weights`` is a directory holding ``hubert.npz`` and
+    ``hubert_kmeans.npz`` (the converted store), or ``"random"``: seeded
+    numpy draws of the params and then the centroids from one generator,
+    bit-identical to ``audiotoken_tpu.weights.get_hubert_params``.
+    """
+    from .configs import HubertEncoderConfig
+    from .nn.hubert import HubertConfig, init_hubert_params
+
+    config = config or HubertEncoderConfig()
+    if weights == "artifacts":
+        raise _artifacts_unsupported()
+    if weights == "random":
+        rng = np.random.default_rng(seed)
+        params = init_hubert_params(rng, HubertConfig())
+        centroids = rng.standard_normal((config.num_clusters, config.hidden_dim)).astype(np.float32)
+        return params, centroids
+    paths = [os.path.join(weights, f"{name}.npz") for name in ("hubert", "hubert_kmeans")]
+    if not all(os.path.exists(p) for p in paths):
+        raise FileNotFoundError(f"no hubert.npz + hubert_kmeans.npz under {weights}")
+    return load_params(paths[0]), load_params(paths[1])["centroids"]
+
+
+def hubert_from_numpy(tree, num_layers: int):
+    """JAX-layout HuBERT tree -> state dict of the port's ``HubertFeatures``
+    with its first ``num_layers`` layers.
+
+    Conv kernels [K, C_in, C_out] and the grouped positional kernel
+    [K, H / groups, H] become [C_out, C_in (per group), K]; linear kernels
+    [in, out] become [out, in]; LayerNorm and GroupNorm scale/bias become
+    weight/bias.
+    """
+    state = {}
+
+    def conv(prefix, p):
+        state[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).transpose(2, 1, 0))
+        if p.get("bias") is not None:
+            state[f"{prefix}.bias"] = _t(p["bias"])
+
+    def linear(prefix, p):
+        state[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+        if p.get("bias") is not None:
+            state[f"{prefix}.bias"] = _t(p["bias"])
+
+    def norm(prefix, p):
+        state[f"{prefix}.weight"] = _t(p["scale"])
+        state[f"{prefix}.bias"] = _t(p["bias"])
+
+    fe = tree["feature_extractor"]
+    for i, p in enumerate(fe["convs"]):
+        conv(f"extractor.convs.{i}", p)
+    norm("extractor.group_norm", fe["group_norm"])
+    norm("fp_layer_norm", tree["feature_projection"]["layer_norm"])
+    linear("projection", tree["feature_projection"]["projection"])
+    conv("pos_conv.conv", tree["pos_conv"])
+    norm("encoder_layer_norm", tree["encoder_layer_norm"])
+    for i, p in enumerate(tree["layers"][:num_layers]):
+        pre = f"layers.{i}"
+        for name in ("q", "k", "v", "out"):
+            linear(f"{pre}.attn.{name}", p["attn"][name])
+        norm(f"{pre}.layer_norm", p["layer_norm"])
+        linear(f"{pre}.ffn_in", p["ffn"]["in"])
+        linear(f"{pre}.ffn_out", p["ffn"]["out"])
+        norm(f"{pre}.final_layer_norm", p["final_layer_norm"])
     return state
 
 

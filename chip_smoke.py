@@ -39,7 +39,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
      times per Bark-fine pass, and K2 runs in the acoustic decoder;
   5c. the decode golden gate at full width, f32 and ``highest``, against
      ``tests/torch_goldens/decode_semantic_m_s0.npz`` (made by the JAX
-     package): greedy AR tokens, argmax fine codes, and the waveforms.
+     package): greedy AR tokens, argmax fine codes, and the waveforms;
+  3d. K8 (the attention ablations) against its plain twins at
+     [16, 16, 1024, 64] bf16, each mode and tile; then the K8 path, the
+     attention micro-profile of ``scripts/profile_attn_micro_torch.py``,
+     printed one case per line with K5's split into products and softmax;
+  3e. K4 in its no-rel masked form at the HuBERT shape [8, 12, 1499, 64]
+     against its plain version and against SDPA with the padding bias;
+  4d. the semantic_s main path: ``AudioToken(Tokenizers.semantic_s)``
+     encode of WAV files (one of 90 s, in 30 s chunks), then
+     ``HubertEncoder`` at 8 and 32 x 30 s of int16 PCM in both attention
+     forms (real-time factors, peak memory); K4 must launch 11 times per
+     ``"flash"`` forward;
+  5d. the semantic_s golden gate: ``battery_semantic_s.npz`` (4 seeds x 12
+     cases, host-normalised over each row's valid prefix) and
+     ``api_semantic_s.npz``.
+
+Every kernel entry carries ``bound_ms``, the least time the card could take
+for the same work: the larger of its operations over the H100's peak for
+their type (67 TFLOP/s f32, 989 TFLOP/s bf16) and its bytes (each input
+read once, each output written once) over 3.35 TB/s; ``bound_by`` says
+which. ``library_ms`` is one PyTorch call computing the same function where
+there is one (timed here, never called by the port), else null.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -55,19 +76,32 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "scripts"))
 
+import profile_attn_micro_torch as micro  # noqa: E402
 import verify_tpu_parity as parity  # noqa: E402  (numpy-only at import)
 from golden_cases import WEIGHT_SEEDS, api_clips, battery  # noqa: E402
 
 from audiotoken_tpu_torch import AudioToken, Tokenizers  # noqa: E402
 from audiotoken_tpu_torch.configs import COMMONS  # noqa: E402
 from audiotoken_tpu_torch.decoders import AcousticDecoder, Wav2VecBertDecoder  # noqa: E402
-from audiotoken_tpu_torch.encoders import AcousticEncoder, Wav2VecBertEncoder  # noqa: E402
+from audiotoken_tpu_torch.encoders import (  # noqa: E402
+    AcousticEncoder,
+    HubertEncoder,
+    Wav2VecBertEncoder,
+)
 from audiotoken_tpu_torch.io.wavfile import write_wav  # noqa: E402
+from audiotoken_tpu_torch.nn.hubert import feature_lengths  # noqa: E402
 from audiotoken_tpu_torch.ops import _build  # noqa: E402
+from audiotoken_tpu_torch.ops.attention import padding_bias  # noqa: E402
+from audiotoken_tpu_torch.ops.attn_ablation import (  # noqa: E402
+    CASES,
+    attn_ablation,
+    attn_ablation_plain,
+)
 from audiotoken_tpu_torch.ops.decode_attention import (  # noqa: E402
     decode_attention,
     decode_attention_plain,
@@ -97,15 +131,27 @@ ACOUSTIC_KERNELS = (seanet_front, lstm_layer, rvq_encode)
 DECODE_KERNELS = (flash_attention_plain, decode_attention, decode_qkv, decode_ffn)
 KERNELS = ACOUSTIC_KERNELS + (flash_attention_relkey,) + DECODE_KERNELS
 W2V_BLOCKS = 19  # conformer blocks a semantic_m forward runs, one K4 launch each
+HUBERT_LAYERS = 11  # layers a semantic_s forward runs, one K4 launch each ("flash")
 GPT_LAYERS, FINE_LAYERS = 12, 24  # K6/K7 launches per decode step, K5 per fine pass
 # bf16 kernel vs plain version: both accumulate in f32 and round at the same
 # points, so they differ by about one bf16 unit of the output's scale
 BF16_SHARE = 2**-6
 GOLDEN_MARGIN = 1e-4  # a greedy AR step whose top-1/top-2 logit gap is below may flip
+# H100 SXM peaks (NVIDIA's data sheet, dense): f32 outside the tensor cores,
+# bf16 tensor cores, and HBM3
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def say(*args):
     print(*args, flush=True)
+
+
+def reset_counts():
+    """Every kernel's launch count to 0, just before a main path runs."""
+    for kern in KERNELS:
+        kern.launches = 0
+    attn_ablation.launches.clear()
 
 
 def cuda_ms(fn, warmup=2, reps=5):
@@ -141,6 +187,19 @@ def device_ms(fn, n=20, warmup=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def bound(flops, nbytes, kind):
+    """{"bound_ms", "bound_by"}: the larger of ``flops`` at the card's peak
+    for ``kind`` ("f32" or "bf16") and ``nbytes`` at its memory rate."""
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def phase1_device():
@@ -188,12 +247,18 @@ def phase3_kernels(dev):
         f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
     if not err <= KERNEL_ATOL:
         raise AssertionError(f"K1 differs from its plain version by {err}")
-    res["seanet_front"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # a multiply-add per weight per sample (the four convs), bias and ELU aside
+    macs = sum(w.numel() for w in front_w[0::2])
+    B, T = x.shape
+    res["seanet_front"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                               **bound(2 * macs * B * T, nbytes(x, *front_w) + 4 * B * 32 * T,
+                                       "f32"))
 
     # K2: both layers of the encoder's LSTM at B=8, T'=2250, H=512; each
     # layer's kernel and plain version get the same xi.
     h = torch.from_numpy(rng.standard_normal((8, 2250, 512)).astype(np.float32)).to(dev)
-    err, ms, plain_ms = 0.0, 0.0, 0.0
+    h_in = h
+    err, ms, plain_ms, flops, moved = 0.0, 0.0, 0.0, 0, 0
     for layer in enc.seanet.lstm:
         xi = torch.matmul(h, layer.wih.t()) + (layer.bih + layer.bhh)
         out = lstm_layer(xi, layer.whh)
@@ -201,12 +266,28 @@ def phase3_kernels(dev):
         err = max(err, (out - ref).abs().max().item())
         ms += cuda_ms(lambda: lstm_layer(xi, layer.whh))
         plain_ms += cuda_ms(lambda: lstm_layer_plain(xi, layer.whh), warmup=1, reps=3)
+        flops += 2 * xi.numel() * layer.whh.shape[1]  # h @ Whh^T at every step
+        moved += nbytes(xi, layer.whh, out)
         h = out
+    # the library yardstick: cuDNN's 2-layer LSTM on the same weights; it
+    # also computes the input projections that K2 leaves to a matmul
+    lib = torch.nn.LSTM(512, 512, num_layers=2, batch_first=True).to(dev)
+    with torch.inference_mode():
+        for i, layer in enumerate(enc.seanet.lstm):
+            for name, w in (("weight_ih", layer.wih), ("weight_hh", layer.whh),
+                            ("bias_ih", layer.bih), ("bias_hh", layer.bhh)):
+                getattr(lib, f"{name}_l{i}").copy_(w)
+        lib_err = (lib(h_in)[0] - h).abs().max().item()
+        library_ms = cuda_ms(lambda: lib(h_in))
+    del lib
     say(f"[3] K2 lstm 2 layers [8, 2250, 512]: max|kernel-plain| {err:.3e}  "
-        f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
+        f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  torch.nn.LSTM (cuDNN) {library_ms:.3f} ms "
+        f"(max|kernel-cuDNN| {lib_err:.3e})")
     if not err <= KERNEL_ATOL:
         raise AssertionError(f"K2 differs from its plain version by {err}")
-    res["lstm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # the roofline ignores the step-to-step dependency of the recurrence
+    res["lstm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       **bound(flops, moved, "f32"))
 
     # K3 on the latents of real SEANet output for the same audio
     with torch.inference_mode():
@@ -223,7 +304,9 @@ def phase3_kernels(dev):
         f"max|recon diff| {err:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
     if not agree >= RVQ_AGREEMENT:
         raise AssertionError(f"K3 codes agree with its plain version at {agree}")
-    res["rvq"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # every frame's residual against every entry of each of the 16 codebooks
+    res["rvq"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                      **bound(2 * z.numel() * 16 * cb.shape[1], nbytes(z, cb[:16], out), "f32"))
     return res
 
 
@@ -248,8 +331,7 @@ def phase4_main_path(dev, tmp):
     enc(pcm30[:8])  # warm up cuDNN's algorithm choice and the allocator
     torch.cuda.synchronize()
 
-    for k in KERNELS:
-        k.launches = 0
+    reset_counts()
     toks = at.encode(os.path.join(tmp, "clip7.wav"))
     _check_codes(toks, (1, 16, -(-(7 * SR + 123) // 320)))
     toks = at.encode(os.path.join(tmp, "clip90.wav"), chunk_size=30)
@@ -344,8 +426,12 @@ def phase3b_flash_attention(dev):
         f"kernel {ms_norel:.3f} ms  plain {plain_norel:.3f} ms")
     if not err_norel <= KERNEL_ATOL:
         raise AssertionError(f"K4 (no rel) differs from its plain version by {err_norel}")
-    return {"flash_attention_relkey": dict(max_abs_err=max(err, err_norel), ms=ms,
-                                           plain_ms=plain_ms)}
+    # two T x T products per head, and q . E^T for the rel term
+    flops = (4 * T * T + 2 * T * E.shape[0]) * 64 * B * H
+    # no single PyTorch call computes the rel-key form
+    return {"flash_attention_relkey": dict(
+        max_abs_err=max(err, err_norel), ms=ms, plain_ms=plain_ms, library_ms=None,
+        **bound(flops, 4 * B * H * T * 64 * 4 + nbytes(E, mask), "f32"))}
 
 
 def _check_ids(ids, shape):
@@ -373,8 +459,7 @@ def phase4b_semantic_m(dev, tmp):
     enc(pcm30[:8])  # warm up cuBLAS and the allocator
     torch.cuda.synchronize()
 
-    for kern in KERNELS:
-        kern.launches = 0
+    reset_counts()
     forwards = 0
     ids = at.encode(os.path.join(tmp, "m7.wav"))
     forwards += 1
@@ -465,14 +550,15 @@ def phase3c_decode_kernels(dev):
     res = {"flash_attention_plain": {}, "decode_attention": {}, "decode_qkv": {},
            "decode_ffn": {}}
 
-    def record(name, dt, B, err, ms, plain_ms):
+    def record(name, dt, B, err, ms, plain_ms, flops, moved, library_ms=None):
         r = res[name]
         if dt == torch.float32:
             r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
         else:
             r["max_abs_err_bf16"] = max(r.get("max_abs_err_bf16", 0.0), err)
         if dt == torch.bfloat16 and B == 8:  # the semantic decode main path's shape
-            r["ms"], r["plain_ms"] = ms, plain_ms
+            r.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                     **bound(flops, moved, "bf16"))
 
     for dt in (torch.bfloat16, torch.float32):
         q = _randn(dev, (8, 16, 1024, 64), dt, 1, 0.125)
@@ -480,9 +566,11 @@ def phase3c_decode_kernels(dev):
         err = _compare("K5", flash_attention_plain(q, k, v), noncausal_attention_plain(q, k, v), dt)
         ms = cuda_ms(lambda: flash_attention_plain(q, k, v), reps=9)
         plain_ms = cuda_ms(lambda: noncausal_attention_plain(q, k, v), reps=9)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), reps=9)
         say(f"[3c] K5 flash_attention_plain [8, 16, 1024, 64] {dt}: max|kernel-plain| "
-            f"{err:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
-        record("flash_attention_plain", dt, 8, err, ms, plain_ms)
+            f"{err:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  SDPA {library_ms:.3f} ms")
+        record("flash_attention_plain", dt, 8, err, ms, plain_ms,
+               4 * 1024 * 1024 * 64 * 8 * 16, 4 * nbytes(q), library_ms)
         del q, k, v
 
         for B in (8, 32):
@@ -500,7 +588,11 @@ def phase3c_decode_kernels(dev):
             plain_ms = device_ms(lambda: decode_attention_plain(q, kc, vc, start, pos, kn, vn))
             say(f"[3c] K6 decode_attention B={B} x 12 heads, 1024 slots {dt}: max|kernel-plain| "
                 f"{err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
-            record("decode_attention", dt, B, err, ms, plain_ms)
+            # this run's data: each row reads its slots [start, pos) of k and v
+            slots = int((pos - start).sum().item())
+            es = q.element_size()
+            moved = (2 * slots * nh * 64 + 2 * q.numel() + 4 * B * nh * 64) * es
+            record("decode_attention", dt, B, err, ms, plain_ms, 4 * (slots + B) * nh * 64, moved)
 
             C = 768
             x, a = _randn(dev, (B, C), dt, 10), _randn(dev, (B, C), dt, 11)
@@ -509,6 +601,9 @@ def phase3c_decode_kernels(dev):
             wi, w2 = _randn(dev, (4 * C, C), dt, 16, 0.02), _randn(dev, (C, 4 * C), dt, 17, 0.02)
             qkv_args = (x, ln1, None, wqkv, None)
             ffn_args = (x, a, wo, ln2, None, wi, w2)
+            work = {"decode_qkv": (2 * B * wqkv.numel(), nbytes(x, ln1, wqkv) + 3 * nbytes(x)),
+                    "decode_ffn": (2 * B * (wo.numel() + wi.numel() + w2.numel()),
+                                   nbytes(x, a, wo, ln2, wi, w2) + nbytes(x))}
             for name, fn, plain, args in (("decode_qkv", decode_qkv, decode_qkv_plain, qkv_args),
                                           ("decode_ffn", decode_ffn, decode_ffn_plain, ffn_args)):
                 err = _compare(f"K7 {name}", fn(*args), plain(*args), dt)
@@ -516,7 +611,7 @@ def phase3c_decode_kernels(dev):
                 plain_ms = device_ms(lambda: plain(*args))
                 say(f"[3c] K7 {name} B={B}, 768 wide {dt}: max|kernel-plain| {err:.3e}  "
                     f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
-                record(name, dt, B, err, ms, plain_ms)
+                record(name, dt, B, err, ms, plain_ms, *work[name])
     return res
 
 
@@ -539,8 +634,7 @@ def phase4c_decode(dev):
     dec.forward_codes(codes30[:8])  # warm up cuDNN's algorithm choice and the allocator
     torch.cuda.synchronize()
 
-    for kern in KERNELS:
-        kern.launches = 0
+    reset_counts()
     wav = at.decode(codes30[:1])
     if wav.shape != (1, 2250 * 320) or not np.isfinite(wav).all():
         raise AssertionError(f"acoustic decode: {wav.shape}, finite {np.isfinite(wav).all()}")
@@ -576,8 +670,7 @@ def phase4c_decode(dev):
     sem.max_new_tokens = 1024
     torch.cuda.synchronize()
 
-    for kern in KERNELS:
-        kern.launches = 0
+    reset_counts()
     steps0, passes0 = sem.gpt.decode_steps, sem.bark.passes
     torch.cuda.reset_peak_memory_stats(dev)
     wavs, wall = _timed(lambda: at.decode_batch(sources))
@@ -688,6 +781,186 @@ def phase5c_decode_goldens(dev):
         raise AssertionError("decode golden gate failed: " + "; ".join(failures))
 
 
+def phase3d_attn_ablation(dev):
+    """K8 against its twins at the micro-profile's shape, then the K8 path:
+    the attention micro-profile, driven with K8's counts at 0. Returns the
+    entries of the K8 kernels and their launch counts from that run."""
+    B, H, T, dh = 16, 16, 1024, 64
+    q, k, v = micro.inputs(B, H, T, dh, dev, seed=0)
+    res = {}
+    for case in CASES:
+        mode = case.rstrip("0123456789")
+        tile = int(case[len(mode):])
+        out = attn_ablation(q, k, v, mode, tile)
+        ref = attn_ablation_plain(q, k, v, mode, tile)
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        del out, ref
+        plain_ms = cuda_ms(lambda: attn_ablation_plain(q, k, v, mode, tile), warmup=1, reps=3)
+        say(f"[3d] K8 {case:11s} [16, 16, 1024, 64] bf16: max|kernel-twin| {err:.3e} of an "
+            f"output scale {scale:.3e} (bound 2^-6 of it)  twin {plain_ms:.3f} ms")
+        if not err <= BF16_SHARE * scale:
+            raise AssertionError(f"K8 {case} differs from its twin by {err} (scale {scale})")
+        # the two products, 4 T^2 dh per (batch, head), on bf16 inputs
+        res[f"attn_ablation_{case}"] = dict(max_abs_err=err, out_scale=scale, plain_ms=plain_ms,
+                                            **bound(4 * T * T * dh * B * H, 4 * nbytes(q), "bf16"))
+    del q, k, v
+
+    reset_counts()
+    times = micro.micro_profile(B, H, T, dh, layers=24, device=dev)
+    counts = {case: attn_ablation.launches[case] for case in CASES}
+    for name, ms in times.items():
+        say(f"[3d] micro-profile {name:12s} {ms:8.3f} ms/layer")
+    say("[3d] K5 split: " + ", ".join(f"{k} {v:.3f}" for k, v in micro.k5_split(times).items()))
+    for case in CASES:
+        # onepass is exact softmax attention (p rounded to bf16): SDPA computes
+        # that function; the ablations are no function a library computes
+        res[f"attn_ablation_{case}"].update(
+            ms=times[case], library_ms=times["sdpa"] if case.startswith("onepass") else None)
+    say(f"[3d] K8 launches during the micro-profile: {counts}")
+    for case, n in counts.items():
+        if n < 1:
+            raise AssertionError(f"K8 {case} was not launched by the micro-profile")
+    return res, counts
+
+
+def phase3e_flash_norel(dev):
+    """K4 in its no-rel masked form at the HuBERT shape, against its plain
+    version and against SDPA given the padding bias as ``attn_mask``."""
+    rng = np.random.default_rng(4)
+    B, H, T = 8, 12, 1499
+
+    def t(scale):
+        return torch.from_numpy(
+            (rng.standard_normal((B, H, T, 64)) * scale).astype(np.float32)).to(dev)
+
+    q, k, v = t(0.3), t(0.3), t(1.0)
+    mask = torch.ones((B, T), device=dev)
+    mask[1, T - 377:] = 0.0
+    mask[5, T // 2:] = 0.0
+    bias = padding_bias(mask)
+    out = flash_attention_relkey(q, k, v, None, mask)
+    err = (out - flash_attention_relkey_plain(q, k, v, None, mask)).abs().max().item()
+    lib_err = (out - F.scaled_dot_product_attention(q, k, v, attn_mask=bias)).abs().max().item()
+    del out
+    ms = cuda_ms(lambda: flash_attention_relkey(q, k, v, None, mask), reps=9)
+    plain_ms = cuda_ms(lambda: flash_attention_relkey_plain(q, k, v, None, mask), reps=9)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias), reps=9)
+    say(f"[3e] K4 no rel, masked [8, 12, 1499, 64]: max|kernel-plain| {err:.3e}  "
+        f"max|kernel-SDPA| {lib_err:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+        f"SDPA {library_ms:.3f} ms")
+    if not err <= KERNEL_ATOL:
+        raise AssertionError(f"K4 (no rel, masked) differs from its plain version by {err}")
+    return {"flash_attention_norel": dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        **bound(4 * T * T * 64 * B * H, 4 * nbytes(q) + nbytes(mask), "f32"))}
+
+
+def phase4d_semantic_s(dev, tmp):
+    """The semantic_s entry points; returns K4's launch count and the
+    facade (its seed-0 encoder is reused by phase 5d)."""
+    rng = np.random.default_rng(10)
+    clip90 = (0.2 * rng.standard_normal(90 * SR_M)).astype(np.float32)
+    clip7 = (0.2 * rng.standard_normal(7 * SR_M + 123)).astype(np.float32)
+    pcm30 = (rng.standard_normal((32, 30 * SR_M)) * 3000).clip(-32768, 32767).astype(np.int16)
+    for name, clip in (("s90.wav", clip90), ("s7.wav", clip7)):
+        write_wav(os.path.join(tmp, name), clip[None], SR_M)
+    t0 = time.perf_counter()
+    at = AudioToken(Tokenizers.semantic_s, weights="random", device=dev)
+    at.load_encoder()
+    default = at.encoder.model_cfg.attn_impl
+    say(f"[4d] HubertEncoder built (random weights, seed 0, attn_impl={default!r}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    other = "xla" if default == "flash" else "flash"
+    encs = {default: at.encoder,
+            other: HubertEncoder(weights="random", seed=0, device=dev, attn_impl=other)}
+    for enc in encs.values():
+        enc(pcm30[:8])  # warm up cuBLAS, cuDNN's algorithm choice and the allocator
+    torch.cuda.synchronize()
+
+    reset_counts()
+    flash_forwards = 0
+    ids = at.encode(os.path.join(tmp, "s7.wav"))
+    _check_ids(ids, (1, 1, feature_lengths(7 * SR_M + 123, at.encoder.model_cfg)))
+    ids = at.encode(os.path.join(tmp, "s90.wav"), chunk_size=30)
+    _check_ids(ids, (1, 1, 3 * 1499))
+    flash_forwards += 4 if default == "flash" else 0
+    walls = {}
+    for attn, enc in encs.items():
+        for B in (8, 32):
+            torch.cuda.reset_peak_memory_stats(dev)
+            runs = []
+            for _ in range(3):
+                ids, wall = _timed(lambda: enc(pcm30[:B]))
+                runs.append(wall)
+                flash_forwards += attn == "flash"
+                _check_ids(ids, (B, 1, 1499))
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            walls[attn, B] = statistics.median(runs)
+            say(f"[4d] HubertEncoder attn_impl={attn!r} B={B} x 30 s int16: median wall "
+                f"{walls[attn, B] * 1e3:.1f} ms (runs {', '.join(f'{w * 1e3:.1f}' for w in runs)}), "
+                f"RTFx {B * 30.0 / walls[attn, B]:.1f}, peak device memory {peak:.2f} GiB")
+    for B in (8, 32):
+        fast = min(encs, key=lambda a: walls[a, B])
+        say(f"[4d] B={B}: {fast!r} is the faster form ({walls['flash', B] * 1e3:.1f} ms flash, "
+            f"{walls['xla', B] * 1e3:.1f} ms xla); the default is {default!r}")
+    n = flash_attention_relkey.launches
+    say(f"[4d] K4 launches during the semantic_s main path: {n} over {flash_forwards} "
+        f"'flash' forwards")
+    if n != HUBERT_LAYERS * flash_forwards or n < 1:
+        raise AssertionError(f"K4 launched {n} times, expected {HUBERT_LAYERS} x {flash_forwards}")
+    del encs
+    return n, at
+
+
+def _hubert_host_norm(audio, lengths):
+    """The host normalisation over each row's valid prefix, zeros after it."""
+    out = np.zeros_like(audio, np.float32)
+    for i, n in enumerate(lengths):
+        out[i, :n] = HubertEncoder.host_transform(audio[i, :n][None])[0]
+    return out
+
+
+def phase5d_semantic_s_goldens(dev, tmp, at):
+    g = np.load(os.path.join(parity.GOLD, "battery_semantic_s.npz"))
+    audio, lengths, names = battery(SR_M)
+    audio = _hubert_host_norm(audio, lengths)
+    failures = []
+    for seed in WEIGHT_SEEDS:
+        enc = (at.encoder if seed == 0
+               else HubertEncoder(weights="random", seed=seed, device=dev))
+        ids = enc(audio, attention_mask=lengths)
+        del enc
+        ref = g[f"ids_s{seed}"]
+        per_case = (ids.reshape(len(names), -1) == ref.reshape(len(names), -1)).mean(axis=1)
+        for name, agree in zip(names, per_case):
+            thresh = parity.case_thresh("semantic_s", name)
+            ok = agree >= thresh
+            say(f"[5d] battery s{seed:<2d} {name:14s} agreement {agree:.6f} (>= {thresh}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"s{seed} {name} {agree:.6f}")
+
+    g = np.load(os.path.join(parity.GOLD, "api_semantic_s.npz"))
+    for name, wav in api_clips(SR_M, at.encoder.buckets).items():
+        if name == "multichunk_90s":
+            path = os.path.join(tmp, "api_s90.wav")
+            write_wav(path, (np.clip(wav, -1, 1) * 32767.0).astype(np.int16)[None], SR_M)
+            toks = at.encode(path, chunk_size=30.0)
+        else:
+            toks = at.encode(wav[None].astype(np.float32))
+        ref = g[f"tokens_{name}"]
+        agree = float((toks == ref).mean()) if toks.shape == ref.shape else 0.0
+        ok = agree >= parity.THRESH
+        say(f"[5d] api {name:14s} agreement {agree:.6f} (>= {parity.THRESH}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"api {name} {agree:.6f}")
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("semantic_s golden gate failed: " + "; ".join(failures))
+
+
 def main():
     phase1_device()
     dev = torch.device("cuda", 0)
@@ -696,11 +969,18 @@ def main():
         res = phase3_kernels(dev)
         res.update(phase3b_flash_attention(dev))
         res.update(phase3c_decode_kernels(dev))
+        k8, k8_counts = phase3d_attn_ablation(dev)
+        res.update(k8)
+        res.update(phase3e_flash_norel(dev))
     with tempfile.TemporaryDirectory() as tmp:
         counts = phase4_main_path(dev, tmp)
         phase5_goldens(dev, tmp)
         counts["flash_attention_relkey"], at = phase4b_semantic_m(dev, tmp)
         phase5b_semantic_m_goldens(dev, tmp, at)
+        del at
+        torch.cuda.empty_cache()
+        counts["flash_attention_norel"], at = phase4d_semantic_s(dev, tmp)
+        phase5d_semantic_s_goldens(dev, tmp, at)
         del at
         torch.cuda.empty_cache()
     decode_counts = phase4c_decode(dev)
@@ -726,7 +1006,17 @@ def main():
          "audiotoken_tpu/ops/decode_step_fused.py:108"),
         ("decode_ffn", "decode_ffn", "audiotoken_tpu_torch/csrc/decode_step.cu",
          "audiotoken_tpu/ops/decode_step_fused.py:131"),
+        # K4 again, in its no-rel masked form on the semantic_s path
+        ("flash_attention_norel", "flash_attention_norel",
+         "audiotoken_tpu_torch/csrc/flash_attention.cu",
+         "audiotoken_tpu/ops/flash_attention.py:519"),
     ]
+    for case in CASES:
+        counts[f"attn_ablation_{case}"] = k8_counts[case]
+        rows.append((f"attn_ablation_{case}", f"attn_ablation_{case}",
+                     "audiotoken_tpu_torch/csrc/attn_ablation.cu",
+                     "scripts/profile_attn_micro.py:" + ("157" if case.startswith("onepass")
+                                                         else "108")))
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[fn], **res[name]}

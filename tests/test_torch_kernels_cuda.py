@@ -357,3 +357,80 @@ def test_semantic_decode_runs_the_kernels(dev):
         if d.type == "cuda":
             assert flash_attention_plain.launches - before == 2 * 2 * 6  # layers x windows x cbs
     assert (fines[0] == fines[1]).mean() >= 0.99
+
+
+# --- K8 (attention ablations) and semantic_s --------------------------------
+
+# K8 against its twin, relative to the output's scale (noexp's outputs are
+# about 1e30): f32 sums in another order; in bf16 a score summed in another
+# order can round p to the neighbouring bf16 value.
+K8_SHARE = {"f32": 2e-5, "bf16": 2**-6}
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("T", [256, 1024])
+@pytest.mark.parametrize("case", ["noexp64", "noexp128", "dotsonly64", "dotsonly128",
+                                  "onepass16", "onepass32"])
+def test_attn_ablation_matches_plain(dev, case, T, dt):
+    from audiotoken_tpu_torch.ops.attn_ablation import attn_ablation, attn_ablation_plain
+
+    mode = case.rstrip("0123456789")
+    tile = int(case[len(mode):])
+    dtype = DECODE_DTYPES[dt]
+    q = _randn(dev, (2, 3, T, 64), dtype, 1, 0.3 * 0.125)
+    k, v = _randn(dev, (2, 3, T, 64), dtype, 2, 0.3), _randn(dev, (2, 3, T, 64), dtype, 3, 0.3)
+    before = attn_ablation.launches[case]
+    out = attn_ablation(q, k, v, mode, tile)
+    torch.cuda.synchronize()
+    assert attn_ablation.launches[case] == before + 1
+    ref = attn_ablation_plain(q, k, v, mode, tile)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert torch.isfinite(out.float()).all()
+    diff = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    assert diff <= K8_SHARE[dt] * scale, (case, dt, diff, scale)
+
+
+def test_attn_ablation_refuses(dev):
+    from audiotoken_tpu_torch.ops.attn_ablation import attn_ablation
+
+    q = torch.zeros((1, 2, 192, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of the tile"):
+        attn_ablation(q, q, q, "noexp", 128)
+    q = torch.zeros((1, 2, 1088, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="up to 1024"):
+        attn_ablation(q, q, q, "onepass", 16)
+    with pytest.raises(ValueError, match="dtype"):
+        attn_ablation(q.half(), q.half(), q.half(), "noexp", 64)
+
+
+def test_micro_profile_runs(dev):
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
+    from profile_attn_micro_torch import cases, micro_profile
+
+    from audiotoken_tpu_torch.ops.attn_ablation import CASES, attn_ablation
+
+    attn_ablation.launches.clear()
+    times = micro_profile(batch=1, heads=2, seq=256, layers=3)
+    assert list(times) == [name for name, _ in cases()]
+    assert all(t > 0 for t in times.values())
+    assert dict(attn_ablation.launches) == {c: 5 for c in CASES}  # 2 warm-up + 3
+
+
+@pytest.mark.parametrize("attn_impl", ["flash", "xla"])
+def test_semantic_s_encoder_on_the_card(dev, attn_impl):
+    from audiotoken_tpu_torch.encoders import HubertEncoder
+
+    x = HubertEncoder.host_transform(
+        (np.random.default_rng(4).standard_normal((2, 20_800)) * 0.2).astype(np.float32))
+    lengths = np.array([20_800, 15_000], np.int32)
+    enc = HubertEncoder(weights="random", seed=0, device=dev, attn_impl=attn_impl)
+    before = flash_attention_relkey.launches
+    ids = enc(x, lengths)
+    assert flash_attention_relkey.launches - before == (11 if attn_impl == "flash" else 0)
+    assert ids.shape == (2, 1, 64) and ids.dtype == np.int16
+    ref = HubertEncoder(weights="random", seed=0, device="cpu", attn_impl=attn_impl)(x, lengths)
+    assert (ids == ref).mean() >= 0.99

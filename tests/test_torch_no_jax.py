@@ -11,7 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "audiotoken_tpu"}
-SOURCES = sorted((ROOT / "audiotoken_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted((ROOT / "audiotoken_tpu_torch").rglob("*.py"))
+           + sorted((ROOT / "scripts").glob("*_torch.py")) + [ROOT / "chip_smoke.py"])
 
 
 def _imported_modules(path: Path):
@@ -40,6 +41,18 @@ def test_sources_found():
 ])
 def test_decode_modules_are_checked(module):
     assert ROOT / "audiotoken_tpu_torch" / module in SOURCES
+
+
+@pytest.mark.parametrize("path", [
+    "audiotoken_tpu_torch/nn/hubert.py", "audiotoken_tpu_torch/ops/attn_ablation.py",
+    "audiotoken_tpu_torch/ops/attention.py", "audiotoken_tpu_torch/runtime/profiling.py",
+    "audiotoken_tpu_torch/encoders.py", "scripts/profile_attn_micro_torch.py",
+    "scripts/profile_decode_torch.py",
+])
+def test_new_modules_are_checked(path):
+    """The semantic_s and profiling modules, and the scripts that
+    chip_smoke.py imports or that run on the card."""
+    assert ROOT / path in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -122,8 +122,32 @@ def test_refusals(tiny_weights):
     with pytest.raises(NotImplementedError, match="pipeline_batch"):
         dec.decode_batch(_sources(4, (5, 6, 7)), pipeline_batch=2)
     assert len(dec.decode_batch(_sources(4, (5, 6)), pipeline_batch=2)) == 2
-    with pytest.raises(NotImplementedError, match="semantic_s"):
-        AudioToken(Tokenizers.semantic_s, device="cpu")
+    at = AudioToken(Tokenizers.semantic_s, weights="random", device="cpu")
+    with pytest.raises(NotImplementedError, match="corpus executor"):
+        at.encode_batch_files(batch_size=2, outdir="unused")
+    with pytest.raises(NotImplementedError, match="libav"):
+        at.encode(b"RIFF")
+
+
+def test_api_semantic_s_decode_matches_jax(tiny_weights):
+    """AudioToken(semantic_s).decode_batch goes through HubertDecoder (EN)
+    and gives the JAX facade's greedy waveforms."""
+    from audiotoken_tpu import AudioToken as JaxAudioToken
+    from audiotoken_tpu import Tokenizers as JaxTokenizers
+
+    kw = dict(max_new_tokens=24, top_k=1, **F32)
+    port = AudioToken(Tokenizers.semantic_s, weights="random", device="cpu")
+    ref = JaxAudioToken(JaxTokenizers.semantic_s, weights="random")
+    port.load_decoder(**kw)
+    ref.load_decoder(**kw)
+    assert isinstance(port.decoder, HubertDecoder) and port.decoder.language == COMMONS.EN
+    _argmax_fine(port.decoder)
+    _argmax_fine(ref.decoder)
+    sources = _sources(4, (18, 9))
+    wavs, refs = port.decode_batch(sources), ref.decode_batch(sources)
+    for w, r in zip(wavs, refs):
+        assert w.shape == r.shape and w.dtype == np.float32
+        np.testing.assert_allclose(w, r, rtol=0, atol=REL * np.abs(r).max())
 
 
 def test_deinterleave_equals_jax():
