@@ -5,10 +5,13 @@
 // pallas_call at :108) and the one-pass kernel (`onepass_kernel`, launched
 // by `run_onepass` at :157). They split the time of a non-causal attention
 // between its two dot products and its online softmax by taking parts of
-// the softmax out. Here they ablate the port's own K5
-// (csrc/flash_attention_plain.cu: 64 query rows a block, 256 threads, f32
-// FMAs on tiles converted to f32 in shared memory), not the TPU kernel's
-// 256/512 tiles and head groups, which Hopper's shared memory does not hold.
+// the softmax out. Here they ablate K5's first design, which its f32 path
+// keeps (csrc/flash_attention_plain.cu: 64 query rows a block, 256
+// threads, f32 FMAs on tiles converted to f32 in shared memory), not the TPU
+// kernel's 256/512 tiles and head groups, which Hopper's shared memory does
+// not hold. The `full` mode is that design whole, valid attention: an
+// ablation's time is subtracted from full's, never from K5's bf16 kernel on
+// the tensor cores, which is another design.
 //
 // Modes, for q (pre-scaled), k, v [BH, T, 64] bf16 or f32, with
 // s = q . k in f32 and `round` the rounding to the element type:
@@ -16,18 +19,23 @@
 //             p = s - m' (no exp), l = l * alpha + rowsum(p), and the
 //             accumulator is NOT rescaled by alpha; acc += round(p) v
 //   dotsonly  per key tile: p = round(s * 1e-6), l += 1; acc += p v
+//   full      per key tile: the online softmax whole, m' as in noexp,
+//             p = exp(s - m'), l = l * alpha + rowsum(p), acc = acc * alpha
+//             + round(p) v: the function of K5 and of the Pallas
+//             `_kernel_plain` (audiotoken_tpu/ops/flash_attention.py:218)
 //   onepass   exact softmax over the whole key row in one pass (no m/l
 //             recurrence): the T scores of each query row sit in shared
 //             memory, then p = exp(s - max), l = sum(p), acc = round(p) v
 // and every mode writes round(acc / max(l, 1e-30)), as the Pallas bodies do.
 // noexp and dotsonly take a key tile of 64 or 128 (the result depends on
-// it); onepass takes 16 or 32 query rows a block (the result does not).
+// it), full a key tile of 64; onepass takes 16 or 32 query rows a block (the
+// result does not).
 //
 // What bounds it: the two dot products, 4 T^2 dh FLOPs per (batch, head),
 // 68.7 GFLOP at [16, 16, 1024, 64]; as f32 FMAs the f32 rate bounds it
 // (about 1 ms at 67 TFLOP/s), against 0.07 ms for bf16 tensor cores. The
-// design is K5's, so that a mode's time minus K5's is the cost of what the
-// mode took out. onepass keeps a whole score row per query row in shared
+// modes share one design, so that full's time minus a mode's is the cost of
+// what the mode took out. onepass keeps a whole score row per query row in shared
 // memory (16 rows x 1024 keys x 4 B = 64 KB), and so reads each head's K and
 // V once per 16 or 32 rows, mostly from L2.
 
@@ -44,7 +52,7 @@ constexpr int LDQ = TQ + 4;   // padded leading dimension of qT and pT
 constexpr int KT = 64;        // keys per shared-memory tile (onepass)
 constexpr unsigned FULL = 0xffffffffu;
 
-enum Mode { NOEXP = 0, DOTSONLY = 1, ONEPASS = 2 };
+enum Mode { NOEXP = 0, DOTSONLY = 1, ONEPASS = 2, FULL_SOFTMAX = 3 };
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
@@ -79,7 +87,7 @@ constexpr size_t tiled_smem_bytes() {
   return (size_t)(DH * LDQ + DH * (TK + 4) + TK * LDQ + TK * DH) * sizeof(float);
 }
 
-// noexp / dotsonly over key tiles of TK (64 or 128). ty owns 4 query rows;
+// noexp / dotsonly / full over key tiles of TK (64 or 128). ty owns 4 query rows;
 // for the scores tx owns TK / 16 keys (tx*4 .. tx*4+3 of each 64-key half),
 // for the output 4 of the 64 dims.
 template <int MODE, int TK, typename T>
@@ -159,7 +167,7 @@ attn_ablation_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < KPT; ++j) s[i][j] = round_to(s[i][j] * 1e-6f, q);
         l[i] += 1.f;
-      } else {  // NOEXP
+      } else {  // NOEXP, FULL_SOFTMAX
         float mx = s[i][0];
 #pragma unroll
         for (int j = 1; j < KPT; ++j) mx = fmaxf(mx, s[i][j]);
@@ -170,13 +178,18 @@ attn_ablation_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float rs = 0.f;
 #pragma unroll
         for (int j = 0; j < KPT; ++j) {
-          s[i][j] -= m_new;  // identity in place of exp
+          // noexp: the identity in place of exp
+          s[i][j] = MODE == FULL_SOFTMAX ? expf(s[i][j] - m_new) : s[i][j] - m_new;
           rs += s[i][j];
           s[i][j] = round_to(s[i][j], q);
         }
 #pragma unroll
         for (int off = 8; off >= 1; off >>= 1) rs += __shfl_xor_sync(FULL, rs, off);
-        l[i] = l[i] * alpha + rs;  // the accumulator keeps its scale: no o *= alpha
+        l[i] = l[i] * alpha + rs;
+        if (MODE == FULL_SOFTMAX) {  // noexp: the accumulator keeps its scale
+#pragma unroll
+          for (int j = 0; j < 4; ++j) o[i][j] *= alpha;
+        }
         m[i] = m_new;
       }
     }
@@ -366,7 +379,7 @@ int launch_onepass(const T* q, const T* k, const T* v, T* out, int BH, int T_len
 }
 
 // mode: 0 noexp, 1 dotsonly (tile = keys per tile, 64 or 128), 2 onepass
-// (tile = query rows per block, 16 or 32). T must be a multiple of the key
+// (tile = query rows per block, 16 or 32), 3 full (tile = 64 keys). T must be a multiple of the key
 // tile for the tiled modes and of 64, at most 1024, for onepass (the wrapper
 // checks).
 template <typename T>
@@ -378,6 +391,8 @@ int dispatch(const T* q, const T* k, const T* v, T* out, int BH, int T_len, int 
     return launch_tiled<DOTSONLY, 64>(q, k, v, out, BH, T_len, stream);
   if (mode == DOTSONLY && tile == 128)
     return launch_tiled<DOTSONLY, 128>(q, k, v, out, BH, T_len, stream);
+  if (mode == FULL_SOFTMAX && tile == 64)
+    return launch_tiled<FULL_SOFTMAX, 64>(q, k, v, out, BH, T_len, stream);
   if (mode == ONEPASS && tile == 16) return launch_onepass<16>(q, k, v, out, BH, T_len, stream);
   if (mode == ONEPASS && tile == 32) return launch_onepass<32>(q, k, v, out, BH, T_len, stream);
   return static_cast<int>(cudaErrorInvalidValue);

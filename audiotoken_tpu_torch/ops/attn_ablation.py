@@ -3,10 +3,11 @@
 Counterpart of the two Pallas kernels inside ``scripts/
 profile_attn_micro.py:main`` (``ablation_kernel`` through ``run_ablation``,
 ``onepass_kernel`` through ``run_onepass``). They are deliberately NOT
-valid attention: each takes a part of the softmax out of K5
-(``csrc/flash_attention_plain.cu``) so that the time it saves is that
-part's cost. The CUDA kernel is ``csrc/attn_ablation.cu``; the modes are
-described there. :func:`attn_ablation_plain` repeats each mode's
+valid attention: each takes a part of the softmax out of K5's first,
+f32-FMA design so that the time it saves is that part's cost. The ``full``
+mode is that design whole (valid attention, the baseline the ablations are
+subtracted from). The CUDA kernel is ``csrc/attn_ablation.cu``; the modes
+are described there. :func:`attn_ablation_plain` repeats each mode's
 arithmetic with a PyTorch loop over key tiles; it runs for CPU tensors
 and is what the kernel is held against on the card.
 
@@ -20,9 +21,9 @@ import torch
 from . import _build
 
 #: mode -> the tiles the kernel is compiled for: keys per tile for
-#: ``noexp`` and ``dotsonly``, query rows per block for ``onepass``
-KERNEL_TILES = {"noexp": (64, 128), "dotsonly": (64, 128), "onepass": (16, 32)}
-_MODE_ID = {"noexp": 0, "dotsonly": 1, "onepass": 2}
+#: ``noexp``, ``dotsonly`` and ``full``, query rows per block for ``onepass``
+KERNEL_TILES = {"full": (64,), "noexp": (64, 128), "dotsonly": (64, 128), "onepass": (16, 32)}
+_MODE_ID = {"noexp": 0, "dotsonly": 1, "onepass": 2, "full": 3}
 #: every (mode, tile) the kernel runs, by the name its launches count under
 CASES = tuple(f"{m}{t}" for m, tiles in KERNEL_TILES.items() for t in tiles)
 ONEPASS_MAX_T = 1024  # the score rows of 32 query rows fit shared memory
@@ -36,7 +37,7 @@ def attn_ablation_plain(q, k, v, mode: str, tile: int):
     ``mode``:
       * ``"noexp"``, ``"dotsonly"``: the ablations over key tiles of
         ``tile`` (T % tile == 0): see ``csrc/attn_ablation.cu``;
-      * ``"plain"``: the online softmax they ablate (``exp`` and the
+      * ``"full"``: the online softmax they ablate (``exp`` and the
         accumulator's rescale by alpha), the function of K5 and of the JAX
         package's ``_kernel_plain``;
       * ``"onepass"``: exact softmax over the whole key row; ``tile`` (query
@@ -51,7 +52,7 @@ def attn_ablation_plain(q, k, v, mode: str, tile: int):
         l = p.sum(dim=-1, keepdim=True)
         acc = torch.matmul(p.to(dt).float(), vf)
         return (acc / l.clamp_min(1e-30)).to(dt)
-    if mode not in ("noexp", "dotsonly", "plain"):
+    if mode not in ("noexp", "dotsonly", "full"):
         raise ValueError(f"attn_ablation: unknown mode {mode!r}")
     if T % tile:
         raise ValueError(f"attn_ablation: T = {T} is not a multiple of the tile {tile}")
@@ -69,7 +70,7 @@ def attn_ablation_plain(q, k, v, mode: str, tile: int):
             p = s - m_new if mode == "noexp" else torch.exp(s - m_new)
             l = l * alpha + p.sum(dim=-1, keepdim=True)
             p = p.to(dt).float()
-            if mode == "plain":
+            if mode == "full":
                 acc = acc * alpha
             m = m_new
         acc = acc + torch.matmul(p, vf[..., k0:k0 + tile, :])
@@ -78,7 +79,7 @@ def attn_ablation_plain(q, k, v, mode: str, tile: int):
 
 def attn_ablation(q, k, v, mode: str, tile: int):
     """The function of :func:`attn_ablation_plain` for ``mode`` in
-    ``noexp``, ``dotsonly``, ``onepass`` and the tiles of
+    ``noexp``, ``dotsonly``, ``onepass``, ``full`` and the tiles of
     :data:`KERNEL_TILES`. Launches K8 for CUDA tensors (bf16 or f32,
     contiguous, dh = 64; T a multiple of the key tile, or for ``onepass``
     of 64 and at most 1024) and runs the plain version for CPU tensors.

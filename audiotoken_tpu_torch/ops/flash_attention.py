@@ -12,7 +12,8 @@ for the rel term.
 K5 (:func:`flash_attention_plain`, ``csrc/flash_attention_plain.cu``) is
 the counterpart of ``_flash_attention_plain``: no bias, no mask, q
 pre-scaled, bf16 or f32. It is a kernel of its own, not K4 without its
-terms, because it also takes bf16.
+terms, because it also takes bf16: in bf16 it runs on the tensor cores
+(``mma.sync``), in f32 as IEEE FMAs.
 """
 
 import torch
@@ -86,9 +87,18 @@ flash_attention_relkey.launches = 0
 
 def noncausal_attention_plain(q, k, v):
     """q (pre-scaled by dh^-0.5), k, v [B, H, T, dh] bf16 or f32 ->
-    ``softmax(q k^T) v`` [B, H, T, dh] in the input's dtype, computed in f32."""
+    ``softmax(q k^T) v`` [B, H, T, dh] in the input's dtype, computed in f32.
+
+    In bf16 it computes what the Pallas bodies do (``_kernel_onepass``,
+    ``_kernel_plain``): ``p = exp(s - rowmax)`` and ``l = sum(p)`` in f32,
+    then ``acc = bf16(p) @ v`` in f32 and ``out = acc / max(l, 1e-30)``."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    return torch.matmul(torch.softmax(s, dim=-1), v.float()).to(q.dtype)
+    if q.dtype == torch.float32:
+        return torch.matmul(torch.softmax(s, dim=-1), v)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.matmul(p.to(q.dtype).float(), v.float())
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
 
 
 def flash_attention_plain(q, k, v):

@@ -12,6 +12,8 @@ from . import _build
 
 #: hidden size the kernel is compiled for (csrc/lstm.cu)
 KERNEL_H = 512
+#: batch rows one launch of the kernel takes; a larger batch runs as groups
+ROW_GROUP = 32
 
 
 def lstm_layer_plain(xi: torch.Tensor, whh: torch.Tensor) -> torch.Tensor:
@@ -34,7 +36,8 @@ def lstm_layer_plain(xi: torch.Tensor, whh: torch.Tensor) -> torch.Tensor:
 def lstm_layer(xi: torch.Tensor, whh: torch.Tensor) -> torch.Tensor:
     """xi [B, T, 4H] f32, whh [4H, H] f32 -> [B, T, H] f32. Launches K2 for
     a CUDA tensor (H = 512, the SEANet LSTMs' size, which the kernel is
-    compiled for) and runs :func:`lstm_layer_plain` for a CPU tensor."""
+    compiled for), once per group of up to :data:`ROW_GROUP` batch rows, and
+    runs :func:`lstm_layer_plain` for a CPU tensor."""
     if xi.device.type == "cpu":
         return lstm_layer_plain(xi, whh)
     if xi.device.type != "cuda":
@@ -46,8 +49,13 @@ def lstm_layer(xi: torch.Tensor, whh: torch.Tensor) -> torch.Tensor:
     _build.check_tensor(whh, "whh", (4 * KERNEL_H, KERNEL_H), torch.float32, xi.device,
                         vector_loads=True)
     out = torch.empty((B, T, KERNEL_H), dtype=torch.float32, device=xi.device)
-    _build.launch("lstm_layer_f32", xi.device, xi, whh, out, B, T)
-    lstm_layer.launches += 1
+    # the blocks exchange h through this ping-pong buffer, one step each side
+    hbuf = torch.empty((2, min(B, ROW_GROUP), KERNEL_H), dtype=torch.float32, device=xi.device)
+    for b0 in range(0, B, ROW_GROUP):
+        R = min(ROW_GROUP, B - b0)
+        _build.launch("lstm_layer_f32", xi.device, xi[b0:b0 + R], whh, out[b0:b0 + R], hbuf,
+                      R, T)
+        lstm_layer.launches += 1
     return out
 
 

@@ -8,7 +8,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
   2. build the hand-written kernels from ``audiotoken_tpu_torch/csrc``;
   3. each kernel against its plain PyTorch version at the main path's
      shapes, with max-abs differences (K1, K2), code agreement (K3) and
-     both times (CUDA events, warm-up, median of several runs);
+     both times (CUDA events, warm-up, median of several runs); K2 at B=8
+     and B=32 x 2250 steps, each against cuDNN's 2-layer ``nn.LSTM`` in the
+     same run, with microseconds a step;
   4. the main path through the entry points a user calls: ``AudioToken``
      encode of WAV files (one of 90 s, in 30 s chunks), then
      ``AcousticEncoder`` at 8 and 32 x 30 s of int16 PCM, with real-time
@@ -26,10 +28,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
   5b. the semantic_m golden gate: ``battery_semantic_m.npz`` (4 seeds x 12
      cases) and ``api_semantic_m.npz`` under the semantic_m contract;
   3c. the decode kernels against their plain versions, bf16 and f32: K5
-     (non-causal attention) at [8, 16, 1024, 64], K6 (decode attention)
-     and K7 (decode_qkv, decode_ffn) at B=8 and B=32 over 1024 cache slots;
-     K6 and K7 take microseconds, less than their launch, so they are timed
-     with the device's queue filled first (``device_ms``);
+     (non-causal attention) at [8, 16, 1024, 64], with SDPA beside it, K6
+     (decode attention) at B=8 and B=32 over 1024 cache slots, with SDPA
+     over the cache and a mask of the attended slots beside it, and K7
+     (decode_qkv, decode_ffn); all three are timed with the device's queue
+     filled first (``device_ms``): K6 and K7 take microseconds, less than
+     their launch, and K5's tenth of a millisecond is not much more than its
+     wrapper's host time;
   4c. the decode main paths: ``AudioToken(Tokenizers.acoustic).decode`` of
      30 s of codes and ``AcousticDecoder`` at 8 and 32 x 30 s (real-time
      factors, peak memory), then ``AudioToken(Tokenizers.semantic_m)
@@ -40,10 +45,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
   5c. the decode golden gate at full width, f32 and ``highest``, against
      ``tests/torch_goldens/decode_semantic_m_s0.npz`` (made by the JAX
      package): greedy AR tokens, argmax fine codes, and the waveforms;
-  3d. K8 (the attention ablations) against its plain twins at
-     [16, 16, 1024, 64] bf16, each mode and tile; then the K8 path, the
-     attention micro-profile of ``scripts/profile_attn_micro_torch.py``,
-     printed one case per line with K5's split into products and softmax;
+  3d. K8 (the attention ablations and their baseline ``full64``) against
+     its plain twins at [16, 16, 1024, 64] bf16, each mode and tile; then the
+     K8 path, the attention micro-profile of
+     ``scripts/profile_attn_micro_torch.py``, printed one case per line with
+     K5 beside ``full64`` and SDPA, and ``full64``'s split into products and
+     softmax;
   3e. K4 in its no-rel masked form at the HuBERT shape [8, 12, 1499, 64]
      against its plain version and against SDPA with the padding bias;
   4d. the semantic_s main path: ``AudioToken(Tokenizers.semantic_s)``
@@ -82,6 +89,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "scripts"))
 
 import profile_attn_micro_torch as micro  # noqa: E402
+from profile_hubert_torch import _union_s  # noqa: E402
 import verify_tpu_parity as parity  # noqa: E402  (numpy-only at import)
 from golden_cases import WEIGHT_SEEDS, api_clips, battery  # noqa: E402
 
@@ -136,6 +144,10 @@ GPT_LAYERS, FINE_LAYERS = 12, 24  # K6/K7 launches per decode step, K5 per fine 
 # bf16 kernel vs plain version: both accumulate in f32 and round at the same
 # points, so they differ by about one bf16 unit of the output's scale
 BF16_SHARE = 2**-6
+# K5 in bf16: kernel and plain version both round p to bf16 before the value
+# product (the kernel against its running maximum), so they differ by at most
+# a bf16 unit of the output's scale
+K5_SHARE = 2**-7
 GOLDEN_MARGIN = 1e-4  # a greedy AR step whose top-1/top-2 logit gap is below may flip
 # H100 SXM peaks (NVIDIA's data sheet, dense): f32 outside the tensor cores,
 # bf16 tensor cores, and HBM3
@@ -187,6 +199,30 @@ def device_ms(fn, n=20, warmup=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def device_split(fn, top=6):
+    """One call of ``fn`` under ``torch.profiler``: a line with its wall
+    time (synchronised), the device's busy time (the union of the kernels'
+    spans: side streams may overlap) and idle share, and the ``top`` kernels
+    by device time, summed by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = _union_s([(e.time_range.start, e.time_range.end) for e in events])
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.end - e.time_range.start
+    kernels = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return (f"wall {wall * 1e3:.1f} ms under the profiler, device busy {busy * 1e3:.1f} ms "
+            f"(idle {100 * (1 - busy / wall):.1f} %); by device time: "
+            + "; ".join(f"{name[:60]} {us / 1e3:.1f} ms" for name, us in kernels))
 
 
 def bound(flops, nbytes, kind):
@@ -254,40 +290,53 @@ def phase3_kernels(dev):
                                **bound(2 * macs * B * T, nbytes(x, *front_w) + 4 * B * 32 * T,
                                        "f32"))
 
-    # K2: both layers of the encoder's LSTM at B=8, T'=2250, H=512; each
-    # layer's kernel and plain version get the same xi.
-    h = torch.from_numpy(rng.standard_normal((8, 2250, 512)).astype(np.float32)).to(dev)
-    h_in = h
-    err, ms, plain_ms, flops, moved = 0.0, 0.0, 0.0, 0, 0
-    for layer in enc.seanet.lstm:
-        xi = torch.matmul(h, layer.wih.t()) + (layer.bih + layer.bhh)
-        out = lstm_layer(xi, layer.whh)
-        ref = lstm_layer_plain(xi, layer.whh)
-        err = max(err, (out - ref).abs().max().item())
-        ms += cuda_ms(lambda: lstm_layer(xi, layer.whh))
-        plain_ms += cuda_ms(lambda: lstm_layer_plain(xi, layer.whh), warmup=1, reps=3)
-        flops += 2 * xi.numel() * layer.whh.shape[1]  # h @ Whh^T at every step
-        moved += nbytes(xi, layer.whh, out)
-        h = out
-    # the library yardstick: cuDNN's 2-layer LSTM on the same weights; it
-    # also computes the input projections that K2 leaves to a matmul
+    # K2: both layers of the encoder's LSTM at T'=2250, H=512, at B=8 (the
+    # main path's shape, which the kernels line reports) and B=32 (one row
+    # group of a launch); each layer's kernel and plain version get the same
+    # xi. The library yardstick is cuDNN's 2-layer LSTM on the same weights,
+    # which also computes the input projections that K2 leaves to a matmul.
     lib = torch.nn.LSTM(512, 512, num_layers=2, batch_first=True).to(dev)
     with torch.inference_mode():
         for i, layer in enumerate(enc.seanet.lstm):
             for name, w in (("weight_ih", layer.wih), ("weight_hh", layer.whh),
                             ("bias_ih", layer.bih), ("bias_hh", layer.bhh)):
                 getattr(lib, f"{name}_l{i}").copy_(w)
-        lib_err = (lib(h_in)[0] - h).abs().max().item()
-        library_ms = cuda_ms(lambda: lib(h_in))
+    steps = 2 * 2250  # two layers of 2250 steps
+    for B in (8, 32):
+        h = torch.from_numpy(rng.standard_normal((B, 2250, 512)).astype(np.float32)).to(dev)
+        h_in = h
+        err, ms, plain_ms, flops, moved = 0.0, 0.0, 0.0, 0, 0
+        for layer in enc.seanet.lstm:
+            xi = torch.matmul(h, layer.wih.t()) + (layer.bih + layer.bhh)
+            out = lstm_layer(xi, layer.whh)
+            ref = lstm_layer_plain(xi, layer.whh)
+            err = max(err, (out - ref).abs().max().item())
+            del ref
+            ms += cuda_ms(lambda: lstm_layer(xi, layer.whh))
+            if B == 8:  # a Python loop of 2250 steps: timed at the main path's shape only
+                plain_ms += cuda_ms(lambda: lstm_layer_plain(xi, layer.whh), warmup=1, reps=3)
+            flops += 2 * xi.numel() * layer.whh.shape[1]  # h @ Whh^T at every step
+            moved += nbytes(xi, layer.whh, out)
+            h = out
+        with torch.inference_mode():
+            lib_err = (lib(h_in)[0] - h).abs().max().item()
+            library_ms = cuda_ms(lambda: lib(h_in))
+        say(f"[3] K2 lstm 2 layers [{B}, 2250, 512]: max|kernel-plain| {err:.3e}  "
+            f"kernel {ms:.3f} ms ({ms * 1e3 / steps:.2f} us a step)  "
+            + (f"plain {plain_ms:.3f} ms  " if B == 8 else "")
+            + f"torch.nn.LSTM (cuDNN) {library_ms:.3f} ms ({library_ms * 1e3 / steps:.2f} us a "
+            f"step; kernel/cuDNN {ms / library_ms:.3f}) (max|kernel-cuDNN| {lib_err:.3e})")
+        if not err <= KERNEL_ATOL:
+            raise AssertionError(f"K2 differs from its plain version by {err} at B={B}")
+        if B == 8:
+            # the roofline ignores the step-to-step dependency of the recurrence
+            res["lstm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                               **bound(flops, moved, "f32"))
+        else:
+            res["lstm"].update(max_abs_err=max(err, res["lstm"]["max_abs_err"]), ms_b32=ms,
+                               library_ms_b32=library_ms)
+        del h, h_in, xi, out
     del lib
-    say(f"[3] K2 lstm 2 layers [8, 2250, 512]: max|kernel-plain| {err:.3e}  "
-        f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  torch.nn.LSTM (cuDNN) {library_ms:.3f} ms "
-        f"(max|kernel-cuDNN| {lib_err:.3e})")
-    if not err <= KERNEL_ATOL:
-        raise AssertionError(f"K2 differs from its plain version by {err}")
-    # the roofline ignores the step-to-step dependency of the recurrence
-    res["lstm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                       **bound(flops, moved, "f32"))
 
     # K3 on the latents of real SEANet output for the same audio
     with torch.inference_mode():
@@ -348,6 +397,7 @@ def phase4_main_path(dev, tmp):
         wall = statistics.median(walls)
         say(f"[4] AcousticEncoder B={B} x 30 s int16: median wall {wall * 1e3:.1f} ms "
             f"(runs {', '.join(f'{w * 1e3:.1f}' for w in walls)}), RTFx {B * 30.0 / wall:.1f}")
+    say(f"[4] AcousticEncoder B=8 profiled: {device_split(lambda: enc(pcm30[:8]))}")
     counts = {k.__name__: k.launches for k in ACOUSTIC_KERNELS}
     say(f"[4] kernel launches during the main path: {counts}")
     for name, n in counts.items():
@@ -535,10 +585,11 @@ def _randn(dev, shape, dtype, seed, scale=1.0):
     return torch.from_numpy(a).to(dev).to(dtype)
 
 
-def _compare(name, out, ref, dt):
-    """max |kernel - plain|, raising past the stated bound for the dtype."""
+def _compare(name, out, ref, dt, share=BF16_SHARE):
+    """max |kernel - plain|, raising past the stated bound for the dtype
+    (in bf16 ``share`` of the output's scale)."""
     err = (out.float() - ref.float()).abs().max().item()
-    bound = KERNEL_ATOL if dt == torch.float32 else BF16_SHARE * ref.float().abs().max().item()
+    bound = KERNEL_ATOL if dt == torch.float32 else share * ref.float().abs().max().item()
     if not err <= bound:
         raise AssertionError(f"{name} {dt} differs from its plain version by {err} > {bound}")
     return err
@@ -563,10 +614,11 @@ def phase3c_decode_kernels(dev):
     for dt in (torch.bfloat16, torch.float32):
         q = _randn(dev, (8, 16, 1024, 64), dt, 1, 0.125)
         k, v = _randn(dev, (8, 16, 1024, 64), dt, 2), _randn(dev, (8, 16, 1024, 64), dt, 3)
-        err = _compare("K5", flash_attention_plain(q, k, v), noncausal_attention_plain(q, k, v), dt)
-        ms = cuda_ms(lambda: flash_attention_plain(q, k, v), reps=9)
-        plain_ms = cuda_ms(lambda: noncausal_attention_plain(q, k, v), reps=9)
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), reps=9)
+        err = _compare("K5", flash_attention_plain(q, k, v), noncausal_attention_plain(q, k, v), dt,
+                       K5_SHARE)
+        ms = device_ms(lambda: flash_attention_plain(q, k, v))
+        plain_ms = device_ms(lambda: noncausal_attention_plain(q, k, v))
+        library_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
         say(f"[3c] K5 flash_attention_plain [8, 16, 1024, 64] {dt}: max|kernel-plain| "
             f"{err:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  SDPA {library_ms:.3f} ms")
         record("flash_attention_plain", dt, 8, err, ms, plain_ms,
@@ -586,13 +638,27 @@ def phase3c_decode_kernels(dev):
             err = _compare("K6", out, decode_attention_plain(q, kc, vc, start, pos, kn, vn), dt)
             ms = device_ms(lambda: decode_attention(q, kc, vc, start, pos, kn, vn))
             plain_ms = device_ms(lambda: decode_attention_plain(q, kc, vc, start, pos, kn, vn))
+            # the library yardstick: SDPA of the one-token query over the cache
+            # with the token's k and v already in slot pos (written here, outside
+            # the timed call) and a boolean mask of the slots [start, pos]
+            kl, vl = kc.clone(), vc.clone()
+            kl[:, :, pos], vl[:, :, pos] = kn.view(B, nh, 64), vn.view(B, nh, 64)
+            slot = torch.arange(L, device=dev)[None, :]
+            mask = ((slot >= start.long()[:, None]) & (slot <= pos))[:, None, None, :]
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q[:, :, None], kl, vl, attn_mask=mask, scale=1.0)
+            lib_err = (lib().reshape(B, nh * 64).float() - out.float()).abs().max().item()
+            library_ms = device_ms(lib)
+            del kl, vl
             say(f"[3c] K6 decode_attention B={B} x 12 heads, 1024 slots {dt}: max|kernel-plain| "
-                f"{err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+                f"{err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  SDPA with the slot mask "
+                f"{library_ms:.4f} ms (max|kernel-SDPA| {lib_err:.3e})")
             # this run's data: each row reads its slots [start, pos) of k and v
             slots = int((pos - start).sum().item())
             es = q.element_size()
             moved = (2 * slots * nh * 64 + 2 * q.numel() + 4 * B * nh * 64) * es
-            record("decode_attention", dt, B, err, ms, plain_ms, 4 * (slots + B) * nh * 64, moved)
+            record("decode_attention", dt, B, err, ms, plain_ms, 4 * (slots + B) * nh * 64, moved,
+                   library_ms)
 
             C = 768
             x, a = _randn(dev, (B, C), dt, 10), _randn(dev, (B, C), dt, 11)
@@ -652,6 +718,8 @@ def phase4c_decode(dev):
         say(f"[4c] AcousticDecoder B={B} x 30 s: median wall {wall * 1e3:.1f} ms (runs "
             f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}), RTFx {B * 30.0 / wall:.1f}, "
             f"peak device memory {peak:.2f} GiB")
+    say(f"[4c] AcousticDecoder B=8 profiled: "
+        f"{device_split(lambda: dec.forward_codes(codes30[:8]))}")
     if lstm_layer.launches < 2 * 7:
         raise AssertionError(f"K2 launched {lstm_layer.launches} times in the acoustic decoder")
     k2 = lstm_layer.launches
@@ -811,12 +879,15 @@ def phase3d_attn_ablation(dev):
     counts = {case: attn_ablation.launches[case] for case in CASES}
     for name, ms in times.items():
         say(f"[3d] micro-profile {name:12s} {ms:8.3f} ms/layer")
-    say("[3d] K5 split: " + ", ".join(f"{k} {v:.3f}" for k, v in micro.k5_split(times).items()))
+    say(f"[3d] K5 (tensor cores) {times['plain']:.3f} ms, the FMA design (full64) "
+        f"{times['full64']:.3f} ms, SDPA {times['sdpa']:.3f} ms")
+    say("[3d] full64 split: " + ", ".join(f"{k} {v:.3f}" for k, v in micro.k5_split(times).items()))
     for case in CASES:
-        # onepass is exact softmax attention (p rounded to bf16): SDPA computes
-        # that function; the ablations are no function a library computes
+        # onepass and full are softmax attention (p rounded to bf16): SDPA
+        # computes that function; the ablations are no function a library computes
+        valid = case.startswith(("onepass", "full"))
         res[f"attn_ablation_{case}"].update(
-            ms=times[case], library_ms=times["sdpa"] if case.startswith("onepass") else None)
+            ms=times[case], library_ms=times["sdpa"] if valid else None)
     say(f"[3d] K8 launches during the micro-profile: {counts}")
     for case, n in counts.items():
         if n < 1:
@@ -962,6 +1033,7 @@ def phase5d_semantic_s_goldens(dev, tmp, at):
 
 
 def main():
+    t_start = time.perf_counter()
     phase1_device()
     dev = torch.device("cuda", 0)
     phase2_build()
@@ -1011,17 +1083,22 @@ def main():
          "audiotoken_tpu_torch/csrc/flash_attention.cu",
          "audiotoken_tpu/ops/flash_attention.py:519"),
     ]
+    # the TPU script's ablations (:108), its one-pass kernel (:157), and for
+    # full its baseline, the Pallas kernel of K5's tiled form
+    k8_replaces = {"onepass": "scripts/profile_attn_micro.py:157",
+                   "full": "audiotoken_tpu/ops/flash_attention.py:309"}
     for case in CASES:
         counts[f"attn_ablation_{case}"] = k8_counts[case]
         rows.append((f"attn_ablation_{case}", f"attn_ablation_{case}",
                      "audiotoken_tpu_torch/csrc/attn_ablation.cu",
-                     "scripts/profile_attn_micro.py:" + ("157" if case.startswith("onepass")
-                                                         else "108")))
+                     k8_replaces.get(case.rstrip("0123456789"),
+                                     "scripts/profile_attn_micro.py:108")))
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[fn], **res[name]}
         for name, fn, src, rep in rows
     ]
+    say(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

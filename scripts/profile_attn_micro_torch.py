@@ -3,12 +3,16 @@ an NVIDIA GPU.
 
     python scripts/profile_attn_micro_torch.py [--batch 16 --heads 16 --seq 1024 --dh 64 --layers 24]
 
-Splits the time of K5 (``csrc/flash_attention_plain.cu``, the non-causal
-attention of Bark-fine) between its two dot products and its online
+Splits the time of an FMA flash attention (K5's first design, which K8
+keeps as its ``full`` mode) between its two dot products and its online
 softmax, by timing K8's ablations of it (``ops/attn_ablation.py``; not
-valid attention, cost attribution only) beside the attention routes:
+valid attention, cost attribution only), beside K5 itself
+(``csrc/flash_attention_plain.cu``, Bark-fine's attention, on the tensor
+cores) and the other attention routes:
 
-  plain                  K5 itself (key tiles of 64)
+  plain                  K5 itself, bf16 on the tensor cores
+  full64                 the FMA design whole (valid attention, key tiles of
+                         64): what the ablations are subtracted from
   noexp64, noexp128      exp replaced by the identity, no rescale of the
                          accumulator, key tiles of 64 / 128
   dotsonly64, dotsonly128  both products, the softmax replaced by a scaled copy
@@ -105,12 +109,14 @@ def micro_profile(batch=16, heads=16, seq=1024, dh=64, layers=24, device=None):
 
 
 def k5_split(times):
-    """K5's time split by the ablations: the two products alone
-    (``dotsonly64``), the softmax on top of them, and exp with the
-    accumulator's rescale (``plain`` minus ``noexp64``), all in ms."""
+    """The FMA design's time (``full64``) split by its ablations: the two
+    products alone (``dotsonly64``), the softmax on top of them, and exp
+    with the accumulator's rescale (``full64`` minus ``noexp64``), all in
+    ms. Every term comes from one design; K5's own time (``plain``, another
+    design) is in none of them."""
     return {"dots_ms": times["dotsonly64"],
-            "softmax_ms": times["plain"] - times["dotsonly64"],
-            "exp_and_rescale_ms": times["plain"] - times["noexp64"]}
+            "softmax_ms": times["full64"] - times["dotsonly64"],
+            "exp_and_rescale_ms": times["full64"] - times["noexp64"]}
 
 
 def main():
@@ -132,7 +138,9 @@ def main():
     for name, ms in times.items():
         print(f"{name:12s}: {ms:8.3f} ms/layer  ({ms * args.layers:8.1f} ms / "
               f"{args.layers} calls)", flush=True)
-    print("K5 split: " + ", ".join(f"{k} {v:.3f}" for k, v in k5_split(times).items()),
+    print(f"K5 (tensor cores) {times['plain']:.3f} ms, the FMA design (full64) "
+          f"{times['full64']:.3f} ms, SDPA {times['sdpa']:.3f} ms", flush=True)
+    print("full64 split: " + ", ".join(f"{k} {v:.3f}" for k, v in k5_split(times).items()),
           flush=True)
 
 

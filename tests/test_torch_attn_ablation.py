@@ -3,10 +3,12 @@
 The Pallas ablation kernels are nested inside
 ``scripts/profile_attn_micro.py:main`` and cannot be imported, so each
 twin is held against a numpy transcription of its Pallas body (lines cited
-below), rounding to bf16 where the body casts ``p`` and the output. The
-``onepass`` twin and the twin's ``plain`` tile loop are also held against
-the JAX package's ``_flash_attention_plain`` in interpret mode: its
-one-pass kernel (T <= 1024) and its tiled online-softmax kernel (T > 1024).
+below), rounding to bf16 where the body casts ``p`` and the output; the
+``full`` mode against a transcription of the JAX package's
+``_kernel_plain``. The ``onepass`` twin and the ``full`` tile loop are also
+held against the JAX package's ``_flash_attention_plain`` in interpret
+mode: its one-pass kernel (T <= 1024) and its tiled online-softmax kernel
+(T > 1024).
 
 Tolerances, relative to the largest output (``noexp`` divides by
 max(l, 1e-30) = 1e-30, so its outputs are about 1e30 and only a relative
@@ -49,7 +51,9 @@ def _round(x, dt):
 
 def _pallas_ablation_np(q, k, v, mode, tile, dt):
     """scripts/profile_attn_micro.py:60-100 (``ablation_kernel``) over the
-    key-tile grid axis of :108, per (batch*head, query tile), in numpy f32."""
+    key-tile grid axis of :108, per (batch*head, query tile), in numpy f32;
+    ``full`` is audiotoken_tpu/ops/flash_attention.py:244-263
+    (``_kernel_plain``) over the grid axis of :309."""
     q, k, v = (t.float().numpy() for t in (q, k, v))
     T = q.shape[-2]
     m = np.full(q.shape[:-1] + (1,), -np.inf, np.float32)  # :66-70
@@ -60,14 +64,16 @@ def _pallas_ablation_np(q, k, v, mode, tile, dt):
         if mode == "dotsonly":  # :77-79
             p = _round(s * np.float32(1e-6), dt)
             l = l + np.float32(1.0)
-        else:  # :81-90, noexp
+        else:  # :81-90, noexp; full: flash_attention.py:249-253
             m_new = np.maximum(m, s.max(axis=-1, keepdims=True))
             alpha = np.exp(m - m_new)
-            p = s - m_new
+            p = np.exp(s - m_new) if mode == "full" else s - m_new
             l = l * alpha + p.sum(axis=-1, keepdims=True)
             p = _round(p, dt)
             m = m_new
-        acc = acc + p @ v[..., k0:k0 + tile, :]  # :91-95, no rescale by alpha
+            if mode == "full":  # flash_attention.py:254-257
+                acc = acc * alpha
+        acc = acc + p @ v[..., k0:k0 + tile, :]  # :91-95, noexp: no rescale by alpha
     return _round(acc / np.maximum(l, np.float32(1e-30)), dt)  # :97-100
 
 
@@ -118,13 +124,27 @@ def test_onepass_twin_matches_jax_flash_plain(dt):
 def test_plain_tile_loop_matches_jax_flash_plain(dt):
     """T > 1024: ``_flash_attention_plain`` takes its tiled online-softmax
     kernel (``_kernel_plain``), the recurrence that noexp and dotsonly
-    ablate; the twin's ``plain`` mode runs the same loop."""
+    ablate; the twin's ``full`` mode runs the same loop."""
     q, k, v = _inputs((1, 2, 1280, 64), dt, seed=6)
-    out = attn_ablation_plain(q, k, v, "plain", 256)
+    out = attn_ablation_plain(q, k, v, "full", 256)
     jdt = jnp.float32 if dt == "f32" else jnp.bfloat16
     ref = jax_flash_plain(*(jnp.asarray(t.float().numpy()).astype(jdt) for t in (q * 8, k, v)),
                           tile=256, interpret=True)
     _assert_close(out.float().numpy(), np.asarray(ref.astype(jnp.float32)), dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_full_twin_matches_jax_flash_plain(dt):
+    """``full64``, the kernel's tile, against the JAX function: its tiled
+    kernel at T = 1280 (key tiles of 256, so p rounds against other running
+    maxima in bf16) and its one-pass kernel at T = 512."""
+    jdt = jnp.float32 if dt == "f32" else jnp.bfloat16
+    for T, seed in ((1280, 10), (512, 11)):
+        q, k, v = _inputs((1, 2, T, 64), dt, seed=seed)
+        out = attn_ablation_plain(q, k, v, "full", 64)
+        ref = jax_flash_plain(*(jnp.asarray(t.float().numpy()).astype(jdt)
+                                for t in (q * 8, k, v)), tile=256, interpret=True)
+        _assert_close(out.float().numpy(), np.asarray(ref.astype(jnp.float32)), dt)
 
 
 def test_the_tile_changes_the_ablations():
@@ -152,6 +172,8 @@ def test_refusals():
         attn_ablation(q, k, v, "noexp", 256)
     with pytest.raises(ValueError, match="not compiled"):
         attn_ablation(q, k, v, "plain", 64)
+    with pytest.raises(ValueError, match="not compiled"):
+        attn_ablation(q, k, v, "full", 128)
     with pytest.raises(ValueError, match="multiple of the tile"):
         attn_ablation(q, k, v, "dotsonly", 128)
     with pytest.raises(ValueError, match="unknown mode"):

@@ -2,12 +2,18 @@
 kernels (interpret mode) on the CPU.
 
 Tolerances: f32 differs only by the order of sums (2e-5 for K5 as in the
-JAX flash test, 1e-5 for the small K6/K7 products). In bf16 both sides
-round at the same places except where the Pallas kernels round the
-softmax weights to bf16 before the value product (K5, K6) or use a
-rational erf (K7), so a bf16 result may differ by a few bf16 units of its
-own scale: 2^-6 of the largest output for K5 and K6, 2^-5 for K7, whose
-GELU input rounds twice.
+JAX flash test, 1e-5 for the small K6/K7 products). In bf16 K5's plain
+version rounds the softmax weights to bf16 before the value product, as
+both Pallas bodies do, so against the one-pass kernel (T <= 1024) only
+the order of f32 sums differs and now and then flips an output to the
+neighbouring bf16 value: measured 2^-11 of the largest output, bound
+2^-10 (the version that kept p in f32 was 2^-8 away). Against the tiled
+kernel (T > 1024) p is rounded relative to the running maximum of the key
+tiles seen so far, so the roundings fall elsewhere: measured 2^-8, bound
+2^-7. Elsewhere a bf16 result may differ by a few bf16 units of its own
+scale where the Pallas kernels round p (K6) or use a rational erf (K7):
+2^-6 of the largest output for K6, 2^-5 for K7, whose GELU input rounds
+twice.
 The CUDA kernels are held against these plain versions on the card
 (tests/test_torch_kernels_cuda.py, chip_smoke.py).
 """
@@ -58,7 +64,19 @@ def test_k5_plain_matches_pallas(dt):
     out = noncausal_attention_plain((q * 0.125).to(tdt), k, v)  # the port takes q pre-scaled
     assert out.dtype == tdt and out.shape == (2, 4, 256, 64)
     ref = jax_flash_plain(_to_jax(q, jdt), _to_jax(k, jdt), _to_jax(v, jdt), interpret=True)
-    _close(out, ref, "K5", 2e-5, None if dt == "f32" else 2**-6)
+    _close(out, ref, "K5", 2e-5, None if dt == "f32" else 2**-10)
+
+
+def test_k5_plain_matches_tiled_pallas_bf16():
+    """T = 1280 > 1024: the JAX function takes its tiled online-softmax
+    kernel (``_kernel_plain``, key tiles of 256)."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 1280, 64)).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    out = noncausal_attention_plain((q * 0.125).to(torch.bfloat16), k, v)
+    ref = jax_flash_plain(*(_to_jax(t, jnp.bfloat16) for t in (q, k, v)), tile=256,
+                          interpret=True)
+    _close(out, ref, "K5 tiled", None, 2**-7)
 
 
 def test_k5_cpu_wrapper_runs_plain_and_counts_no_launch():

@@ -80,17 +80,36 @@ def test_seanet_front_takes_unaligned_rows(dev):
     assert torch.allclose(out, ref, atol=ATOL, rtol=0), (out - ref).abs().max().item()
 
 
-@pytest.mark.parametrize("B,T", [(1, 40), (3, 17), (9, 33)])
-def test_lstm_matches_plain(dev, B, T):
-    H = 512
+def _lstm_inputs(dev, B, T, H=512):
     rng = np.random.default_rng(B * 1000 + H)
     xi = torch.from_numpy(rng.standard_normal((B, T, 4 * H)).astype(np.float32)).to(dev)
     s = 1.0 / np.sqrt(H)
     whh = torch.from_numpy(rng.uniform(-s, s, (4 * H, H)).astype(np.float32)).to(dev)
+    return xi, whh
+
+
+# 8 and 32 rows fill one launch's row groups; 33 takes a second launch; T=1
+# is a single step with no grid barrier; T=2250 is a 30 s row
+@pytest.mark.parametrize("B,T", [(1, 40), (3, 17), (9, 33), (8, 2250), (32, 300), (33, 50),
+                                 (5, 1)])
+def test_lstm_matches_plain(dev, B, T):
+    xi, whh = _lstm_inputs(dev, B, T)
+    before = lstm_layer.launches
     out = lstm_layer(xi, whh)
     torch.cuda.synchronize()
+    assert lstm_layer.launches == before + -(-B // 32)  # one launch a group of 32 rows
     ref = lstm_layer_plain(xi, whh)
     assert torch.allclose(out, ref, atol=ATOL, rtol=0), (out - ref).abs().max().item()
+
+
+def test_lstm_back_to_back_launches_agree(dev):
+    """Two launches queued on one stream give the same bits: the ping-pong
+    buffer and the grid barrier keep no state from one launch to the next."""
+    xi, whh = _lstm_inputs(dev, 8, 400)
+    a = lstm_layer(xi, whh)
+    b = lstm_layer(xi, whh)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_lstm_refuses_other_sizes(dev):
@@ -200,9 +219,11 @@ def test_semantic_m_encoder_runs_the_kernel(dev):
 
 # --- semantic decode: K5, K6, K7 --------------------------------------------
 
-# bf16: kernel and plain version both compute in f32 and round once (K5, K6)
-# or at the same staging points (K7), so they differ by a bf16 unit of the
-# output's scale where a sum in another order crosses a rounding boundary.
+# bf16: kernel and plain version both compute in f32 and round at the same
+# points (K5 and its plain version both round p to bf16 before the value
+# product, the kernel against its running maximum; K6 rounds once; K7 at the
+# same staging points), so they differ by a bf16 unit of the output's scale
+# where a sum in another order crosses a rounding boundary.
 BF16_SHARE = {"K5": 2**-7, "K6": 2**-7, "K7": 2**-6}
 DECODE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -220,7 +241,8 @@ def _randn(dev, shape, dtype, seed, scale=1.0):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("B,T", [(1, 1024), (8, 1024), (32, 512), (2, 77)])
+@pytest.mark.parametrize("B,T", [(1, 1024), (8, 1024), (32, 512), (2, 77), (2, 1000),
+                                 (2, 1280)])
 def test_flash_attention_plain_matches_plain(dev, B, T, dt):
     from audiotoken_tpu_torch.ops.flash_attention import (
         flash_attention_plain,
@@ -370,7 +392,7 @@ K8_SHARE = {"f32": 2e-5, "bf16": 2**-6}
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("T", [256, 1024])
 @pytest.mark.parametrize("case", ["noexp64", "noexp128", "dotsonly64", "dotsonly128",
-                                  "onepass16", "onepass32"])
+                                  "onepass16", "onepass32", "full64"])
 def test_attn_ablation_matches_plain(dev, case, T, dt):
     from audiotoken_tpu_torch.ops.attn_ablation import attn_ablation, attn_ablation_plain
 
