@@ -5,16 +5,19 @@ Counterpart of ``audiotoken_tpu/ops/decode_step_fused.py``:
     decode_qkv:  qkv = LN1(x) Wqkv + bqkv
     decode_ffn:  x1 = x + a Wo + bo;  out = x1 + GELU(LN2(x1) Win + bi) Wout2 + b2
 
-The CUDA kernel (``csrc/decode_step.cu``) is a weight-streaming GEMV over
-the rows with an optional LayerNorm prologue and a bias / exact-GELU /
-residual epilogue; ``decode_qkv`` is one launch of it and ``decode_ffn``
-three, from one C call each. Weights are in torch's ``[out, in]`` layout;
-absent biases (the GPT has none) are None. The numerics follow the Pallas kernels' staging, so
-that bf16 runs differ from the reference only by rounding: LN statistics
-in f32; the normalised row, scale and shift rounded to the activation
-dtype in turn; products accumulated in f32 and rounded, then the bias, the
-GELU (exact erf, in f32) and the residual, each rounded. The plain
-versions below spell that staging out.
+The CUDA kernels (``csrc/decode_step.cu``) compute each product as a GEMV
+over the rows with an optional LayerNorm prologue and a bias / exact-GELU /
+residual epilogue; ``decode_qkv`` (one product) and ``decode_ffn`` (three)
+are one C call each. In bf16 (the main path) the products run on the
+tensor cores as a weight stream spread over the whole card, each LayerNorm
+in a small kernel of its own; in f32 (the greedy parity path) as IEEE
+FMAs, the LayerNorm in the product's prologue. Weights are in torch's ``[out, in]``
+layout; absent biases (the GPT has none) are None. The numerics follow the
+Pallas kernels' staging, so that bf16 runs differ from the reference only
+by rounding: LN statistics in f32; the normalised row, scale and shift
+rounded to the activation dtype in turn; products accumulated in f32 and
+rounded, then the bias, the GELU (exact erf, in f32) and the residual,
+each rounded. The plain versions below spell that staging out.
 """
 
 import torch
@@ -51,14 +54,25 @@ def decode_ffn_plain(x, a, w_out, ln_w, ln_b, w_in, w_out2, b_out=None, b_in=Non
     return x1 + _product(h, w_out2, b_out2)
 
 
-def _check(who, act, **operands):
+#: widths the bf16 kernel takes: a LayerNorm prologue needs whole rows in
+#: one block (``KR_MAX`` in csrc/decode_step.cu), any other product splits
+#: its input width over at most 8 blocks of a cluster
+BF16_LN_WIDTH, BF16_WIDTH = 1024, 8 * 1024
+
+
+def _check(who, act, ln_width, width, **operands):
     """The device and dtype of the activations ``act``, then every operand
     (name=(tensor or None, shape)) against them. The kernel reads weights
-    16 bytes at a time, so their rows must be multiples of 8 wide."""
+    16 bytes at a time, so their rows must be multiples of 8 wide; in bf16
+    the LN product's input width is at most ``BF16_LN_WIDTH`` and every
+    other one's at most ``BF16_WIDTH``."""
     if act.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {act.device}")
     if act.dtype not in _build.DTYPE_SUFFIX:
         raise ValueError(f"{who}: dtype {act.dtype}, the kernel takes bf16 or f32")
+    if act.dtype == torch.bfloat16 and (ln_width > BF16_LN_WIDTH or width > BF16_WIDTH):
+        raise ValueError(f"{who}: widths {ln_width} (LN) and {width}, the bf16 kernel takes "
+                         f"up to {BF16_LN_WIDTH} and {BF16_WIDTH}")
     for name, (t, shape) in operands.items():
         if t is not None:
             _build.check_tensor(t, name, shape, act.dtype, act.device, vector_loads=True)
@@ -67,13 +81,13 @@ def _check(who, act, **operands):
 
 
 def decode_qkv(x, ln_w, ln_b, w_qkv, b_qkv=None, eps: float = 1e-5):
-    """The function of :func:`decode_qkv_plain`: one launch of K7 for CUDA
+    """The function of :func:`decode_qkv_plain`: one call of K7 for CUDA
     tensors, the plain version for CPU tensors."""
     if x.device.type == "cpu":
         return decode_qkv_plain(x, ln_w, ln_b, w_qkv, b_qkv, eps)
     B, C = x.shape
     N = w_qkv.shape[0]
-    _check("decode_qkv", x, x=(x, (B, C)), ln_w=(ln_w, (C,)), ln_b=(ln_b, (C,)),
+    _check("decode_qkv", x, C, C, x=(x, (B, C)), ln_w=(ln_w, (C,)), ln_b=(ln_b, (C,)),
            w_qkv=(w_qkv, (N, C)), b_qkv=(b_qkv, (N,)))
     y = torch.empty((B, N), dtype=x.dtype, device=x.device)
     _build.launch(f"decode_qkv_{_build.DTYPE_SUFFIX[x.dtype]}", x.device,
@@ -88,13 +102,15 @@ decode_qkv.launches = 0
 def decode_ffn(x, a, w_out, ln_w, ln_b, w_in, w_out2, b_out=None, b_in=None, b_out2=None,
                eps: float = 1e-5):
     """The function of :func:`decode_ffn_plain`: one call of K7 for CUDA
-    tensors (three kernel launches: out-projection, MLP input, MLP output),
-    the plain version for CPU tensors."""
+    tensors (the out-projection, the MLP input and the MLP output; in bf16
+    with LN2 between the first two, and each kernel after the first
+    starting its weight loads while the one before it runs), the plain
+    version for CPU tensors."""
     if x.device.type == "cpu":
         return decode_ffn_plain(x, a, w_out, ln_w, ln_b, w_in, w_out2, b_out, b_in, b_out2, eps)
     B, C = x.shape
     H = w_in.shape[0]
-    _check("decode_ffn", x, x=(x, (B, C)), a=(a, (B, C)), w_out=(w_out, (C, C)),
+    _check("decode_ffn", x, C, H, x=(x, (B, C)), a=(a, (B, C)), w_out=(w_out, (C, C)),
            b_out=(b_out, (C,)), ln_w=(ln_w, (C,)), ln_b=(ln_b, (C,)), w_in=(w_in, (H, C)),
            b_in=(b_in, (H,)), w_out2=(w_out2, (C, H)), b_out2=(b_out2, (C,)))
     x1 = torch.empty_like(x)

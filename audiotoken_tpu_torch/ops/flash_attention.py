@@ -5,9 +5,12 @@ K4 is the counterpart of ``audiotoken_tpu/ops/flash_attention.py:
 flash_attention_relkey`` (Pallas kernel ``_kernel``, and its 2-head-packed
 form, which computes the same function). Its CUDA kernel is
 ``csrc/flash_attention.cu``: blockwise, with an online softmax, so no
-[T, T] scores reach device memory. :func:`flash_attention_relkey_plain` is
-the same function written the direct way, with full scores and a gather
-for the rel term.
+[T, T] scores reach device memory, and both products on the tensor cores in
+split precision (3xTF32: each f32 operand as a TF32 high part and a TF32
+remainder, three passes, f32 accumulation), which keeps f32 accuracy as the
+TPU kernel's multi-pass ``Precision.HIGHEST`` dots do.
+:func:`flash_attention_relkey_plain` is the same function written the
+direct way, with full scores and a gather for the rel term.
 
 K5 (:func:`flash_attention_plain`, ``csrc/flash_attention_plain.cu``) is
 the counterpart of ``_flash_attention_plain``: no bias, no mask, q

@@ -9,8 +9,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
   3. each kernel against its plain PyTorch version at the main path's
      shapes, with max-abs differences (K1, K2), code agreement (K3) and
      both times (CUDA events, warm-up, median of several runs); K2 at B=8
-     and B=32 x 2250 steps, each against cuDNN's 2-layer ``nn.LSTM`` in the
-     same run, with microseconds a step;
+     and B=32 x 2250 steps, each against its plain version and cuDNN's
+     2-layer ``nn.LSTM`` in the same run, with microseconds a step;
   4. the main path through the entry points a user calls: ``AudioToken``
      encode of WAV files (one of 90 s, in 30 s chunks), then
      ``AcousticEncoder`` at 8 and 32 x 30 s of int16 PCM, with real-time
@@ -34,7 +34,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (decode_qkv, decode_ffn); all three are timed with the device's queue
      filled first (``device_ms``): K6 and K7 take microseconds, less than
      their launch, and K5's tenth of a millisecond is not much more than its
-     wrapper's host time;
+     wrapper's host time. K7 in bf16 at B=8 and 32 is timed with its weights
+     cold (``cold_ms``: the calls cycle through distinct weight sets larger
+     together than the L2, as a 12-layer step does), beside its plain
+     version and the unfused chain of PyTorch calls for the same function
+     (``chain_ms``), and warm;
   4c. the decode main paths: ``AudioToken(Tokenizers.acoustic).decode`` of
      30 s of codes and ``AcousticDecoder`` at 8 and 32 x 30 s (real-time
      factors, peak memory), then ``AudioToken(Tokenizers.semantic_m)
@@ -64,15 +68,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 Every kernel entry carries ``bound_ms``, the least time the card could take
 for the same work: the larger of its operations over the H100's peak for
-their type (67 TFLOP/s f32, 989 TFLOP/s bf16) and its bytes (each input
-read once, each output written once) over 3.35 TB/s; ``bound_by`` says
-which. ``library_ms`` is one PyTorch call computing the same function where
+their type (67 TFLOP/s f32 FMAs, 989 TFLOP/s bf16; K4's f32-accurate
+products in 3xTF32, three passes at 495 TFLOP/s, with the FMA bound beside
+it as ``bound_f32_ms``) and its bytes (each input read once, each output
+written once) over 3.35 TB/s; ``bound_by`` says which. ``library_ms`` is one PyTorch call computing the same function where
 there is one (timed here, never called by the port), else null.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
+import itertools
 import json
 import os
 import statistics
@@ -133,7 +139,7 @@ from audiotoken_tpu_torch.runtime.precision import get_policy  # noqa: E402
 
 SR = 24_000
 SR_M = 16_000  # semantic_m
-KERNEL_ATOL = 1e-4  # K1, K2, K4: kernel vs plain, both IEEE f32, other sum order
+KERNEL_ATOL = 1e-4  # K1, K2, K4: kernel vs plain in f32 (K4 in 3xTF32), other sum order
 RVQ_AGREEMENT = 0.999  # K3: late-codebook near-ties may flip (RVQ contract)
 ACOUSTIC_KERNELS = (seanet_front, lstm_layer, rvq_encode)
 DECODE_KERNELS = (flash_attention_plain, decode_attention, decode_qkv, decode_ffn)
@@ -150,9 +156,10 @@ BF16_SHARE = 2**-6
 K5_SHARE = 2**-7
 GOLDEN_MARGIN = 1e-4  # a greedy AR step whose top-1/top-2 logit gap is below may flip
 # H100 SXM peaks (NVIDIA's data sheet, dense): f32 outside the tensor cores,
-# bf16 tensor cores, and HBM3
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+# bf16 and TF32 tensor cores, and HBM3
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "tf32": 495e12}
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2**20  # K7 is timed with weight sets that together exceed it
 
 
 def say(*args):
@@ -201,6 +208,15 @@ def device_ms(fn, n=20, warmup=2):
     return start.elapsed_time(end) / n
 
 
+def cold_ms(fns, n=60):
+    """:func:`device_ms` of calls that cycle through ``fns``, each of which
+    reads its own weights: with more distinct weights than the L2 holds,
+    every call reads them cold from device memory, as a 12-layer decode
+    step does."""
+    calls = itertools.cycle(fns)
+    return device_ms(lambda: next(calls)(), n=n)
+
+
 def device_split(fn, top=6):
     """One call of ``fn`` under ``torch.profiler``: a line with its wall
     time (synchronised), the device's busy time (the union of the kernels'
@@ -227,8 +243,11 @@ def device_split(fn, top=6):
 
 def bound(flops, nbytes, kind):
     """{"bound_ms", "bound_by"}: the larger of ``flops`` at the card's peak
-    for ``kind`` ("f32" or "bf16") and ``nbytes`` at its memory rate."""
-    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    for ``kind`` and ``nbytes`` at its memory rate. ``kind`` is "f32" (FMAs),
+    "bf16" (tensor cores) or "tf32x3": f32-accurate products in split
+    precision on the tensor cores, three TF32 passes per operation."""
+    t_ops = (3 * flops / PEAK_FLOPS["tf32"] if kind == "tf32x3"
+             else flops / PEAK_FLOPS[kind]) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -313,8 +332,7 @@ def phase3_kernels(dev):
             err = max(err, (out - ref).abs().max().item())
             del ref
             ms += cuda_ms(lambda: lstm_layer(xi, layer.whh))
-            if B == 8:  # a Python loop of 2250 steps: timed at the main path's shape only
-                plain_ms += cuda_ms(lambda: lstm_layer_plain(xi, layer.whh), warmup=1, reps=3)
+            plain_ms += cuda_ms(lambda: lstm_layer_plain(xi, layer.whh), warmup=1, reps=3)
             flops += 2 * xi.numel() * layer.whh.shape[1]  # h @ Whh^T at every step
             moved += nbytes(xi, layer.whh, out)
             h = out
@@ -322,9 +340,8 @@ def phase3_kernels(dev):
             lib_err = (lib(h_in)[0] - h).abs().max().item()
             library_ms = cuda_ms(lambda: lib(h_in))
         say(f"[3] K2 lstm 2 layers [{B}, 2250, 512]: max|kernel-plain| {err:.3e}  "
-            f"kernel {ms:.3f} ms ({ms * 1e3 / steps:.2f} us a step)  "
-            + (f"plain {plain_ms:.3f} ms  " if B == 8 else "")
-            + f"torch.nn.LSTM (cuDNN) {library_ms:.3f} ms ({library_ms * 1e3 / steps:.2f} us a "
+            f"kernel {ms:.3f} ms ({ms * 1e3 / steps:.2f} us a step)  plain {plain_ms:.3f} ms  "
+            f"torch.nn.LSTM (cuDNN) {library_ms:.3f} ms ({library_ms * 1e3 / steps:.2f} us a "
             f"step; kernel/cuDNN {ms / library_ms:.3f}) (max|kernel-cuDNN| {lib_err:.3e})")
         if not err <= KERNEL_ATOL:
             raise AssertionError(f"K2 differs from its plain version by {err} at B={B}")
@@ -333,8 +350,10 @@ def phase3_kernels(dev):
             res["lstm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                                **bound(flops, moved, "f32"))
         else:
+            b32 = bound(flops, moved, "f32")
             res["lstm"].update(max_abs_err=max(err, res["lstm"]["max_abs_err"]), ms_b32=ms,
-                               library_ms_b32=library_ms)
+                               plain_ms_b32=plain_ms, library_ms_b32=library_ms,
+                               bound_ms_b32=b32["bound_ms"])
         del h, h_in, xi, out
     del lib
 
@@ -476,12 +495,14 @@ def phase3b_flash_attention(dev):
         f"kernel {ms_norel:.3f} ms  plain {plain_norel:.3f} ms")
     if not err_norel <= KERNEL_ATOL:
         raise AssertionError(f"K4 (no rel) differs from its plain version by {err_norel}")
-    # two T x T products per head, and q . E^T for the rel term
+    # two T x T products per head, and q . E^T for the rel term; the bound
+    # is f32-accurate products in 3xTF32, the FMA bound beside it
     flops = (4 * T * T + 2 * T * E.shape[0]) * 64 * B * H
+    moved = 4 * B * H * T * 64 * 4 + nbytes(E, mask)
     # no single PyTorch call computes the rel-key form
     return {"flash_attention_relkey": dict(
         max_abs_err=max(err, err_norel), ms=ms, plain_ms=plain_ms, library_ms=None,
-        **bound(flops, 4 * B * H * T * 64 * 4 + nbytes(E, mask), "f32"))}
+        **bound(flops, moved, "tf32x3"), bound_f32_ms=bound(flops, moved, "f32")["bound_ms"])}
 
 
 def _check_ids(ids, shape):
@@ -667,17 +688,68 @@ def phase3c_decode_kernels(dev):
             wi, w2 = _randn(dev, (4 * C, C), dt, 16, 0.02), _randn(dev, (C, 4 * C), dt, 17, 0.02)
             qkv_args = (x, ln1, None, wqkv, None)
             ffn_args = (x, a, wo, ln2, None, wi, w2)
-            work = {"decode_qkv": (2 * B * wqkv.numel(), nbytes(x, ln1, wqkv) + 3 * nbytes(x)),
-                    "decode_ffn": (2 * B * (wo.numel() + wi.numel() + w2.numel()),
-                                   nbytes(x, a, wo, ln2, wi, w2) + nbytes(x))}
             for name, fn, plain, args in (("decode_qkv", decode_qkv, decode_qkv_plain, qkv_args),
                                           ("decode_ffn", decode_ffn, decode_ffn_plain, ffn_args)):
                 err = _compare(f"K7 {name}", fn(*args), plain(*args), dt)
-                ms = device_ms(lambda: fn(*args))
-                plain_ms = device_ms(lambda: plain(*args))
-                say(f"[3c] K7 {name} B={B}, 768 wide {dt}: max|kernel-plain| {err:.3e}  "
-                    f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
-                record(name, dt, B, err, ms, plain_ms, *work[name])
+                if dt == torch.float32:
+                    res[name]["max_abs_err"] = max(res[name].get("max_abs_err", 0.0), err)
+                    say(f"[3c] K7 {name} B={B}, 768 wide {dt}: max|kernel-plain| {err:.3e}  "
+                        f"kernel {device_ms(lambda: fn(*args)):.4f} ms (weights warm)")
+                else:
+                    res[name]["max_abs_err_bf16"] = max(res[name].get("max_abs_err_bf16", 0.0), err)
+            if dt == torch.bfloat16:
+                _k7_cold(dev, res, x, a, ln1, ln2, (wqkv,), (wo, wi, w2))
+    return res
+
+
+def _weight_sets(dev, first, seed):
+    """``first`` (a tuple of weights) and more sets of the same shapes, drawn
+    on the device, until they hold at least 6 sets and more than the L2."""
+    per = nbytes(*first)
+    n = max(6, -(-(L2_BYTES + 16 * 2**20) // per))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [first] + [tuple((torch.randn(w.shape, generator=g, device=dev) * 0.02).to(w.dtype)
+                            for w in first) for _ in range(n - 1)]
+
+
+def _k7_cold(dev, res, x, a, ln1, ln2, qkv_w, ffn_w):
+    """K7 in bf16 timed cold (each call reads weights no other call of the
+    queue read since they left the L2), beside its plain version and the
+    unfused chain of PyTorch calls for the same function (which the port
+    never calls), all under the same condition; and warm, one weight set."""
+    B, C = x.shape
+    chain_qkv = lambda w: F.linear(F.layer_norm(x, (C,), ln1, None, 1e-5), w)  # noqa: E731
+
+    def chain_ffn(wo, wi, w2):
+        x1 = F.linear(a, wo) + x
+        return F.linear(F.gelu(F.linear(F.layer_norm(x1, (C,), ln2, None, 1e-5), wi)), w2) + x1
+
+    qkv = lambda fn: lambda w: fn(x, ln1, None, w)  # noqa: E731
+    ffn = lambda fn: lambda wo, wi, w2: fn(x, a, wo, ln2, None, wi, w2)  # noqa: E731
+    for name, first, kern, plain, chain in (
+            ("decode_qkv", qkv_w, qkv(decode_qkv), qkv(decode_qkv_plain), chain_qkv),
+            ("decode_ffn", ffn_w, ffn(decode_ffn), ffn(decode_ffn_plain), chain_ffn)):
+        sets = _weight_sets(dev, first, len(first) * 1000 + B)
+        cold = {k: cold_ms([lambda f=f, ws=ws: f(*ws) for ws in sets])
+                for k, f in (("kernel", kern), ("plain", plain), ("chain", chain))}
+        warm = device_ms(lambda: kern(*first))
+        # the weights read once, the rows in and out; 2 B x (weights) operations
+        flops = 2 * B * sum(w.numel() for w in first)
+        moved = (nbytes(x, ln1, *first) + 3 * nbytes(x) if name == "decode_qkv"
+                 else nbytes(x, a, ln2, *first) + nbytes(x))
+        b = bound(flops, moved, "bf16")
+        say(f"[3c] K7 {name} B={B}, 768 wide bf16, weights cold ({len(sets)} sets, "
+            f"{len(sets) * nbytes(*first) / 2**20:.0f} MiB): kernel {cold['kernel']:.4f} ms  plain "
+            f"{cold['plain']:.4f} ms  chain of PyTorch calls {cold['chain']:.4f} ms  bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}); weights warm: kernel {warm:.4f} ms")
+        r = res[name]
+        if B == 8:  # the semantic decode main path's shape
+            r.update(ms=cold["kernel"], warm_ms=warm, plain_ms=cold["plain"],
+                     chain_ms=cold["chain"], library_ms=None, **b)
+        else:
+            r.update(ms_b32=cold["kernel"], warm_ms_b32=warm, plain_ms_b32=cold["plain"],
+                     chain_ms_b32=cold["chain"], bound_ms_b32=b["bound_ms"])
+        del sets
     return res
 
 
@@ -922,9 +994,10 @@ def phase3e_flash_norel(dev):
         f"SDPA {library_ms:.3f} ms")
     if not err <= KERNEL_ATOL:
         raise AssertionError(f"K4 (no rel, masked) differs from its plain version by {err}")
+    flops, moved = 4 * T * T * 64 * B * H, 4 * nbytes(q) + nbytes(mask)
     return {"flash_attention_norel": dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        **bound(4 * T * T * 64 * B * H, 4 * nbytes(q) + nbytes(mask), "f32"))}
+        **bound(flops, moved, "tf32x3"), bound_f32_ms=bound(flops, moved, "f32")["bound_ms"])}
 
 
 def phase4d_semantic_s(dev, tmp):

@@ -116,3 +116,53 @@ def test_plain_refuses_wrong_embedding_rows():
     q, k, v, E = _inputs(1, 1, 1, 20)
     with pytest.raises(ValueError, match="left \\+ right \\+ 1"):
         flash_attention_relkey_plain(*map(torch.from_numpy, (q, k, v, E[:10])), None, LEFT, RIGHT)
+
+
+def _tf32(x):
+    """x (f32) rounded to TF32, 10 mantissa bits, to nearest with ties away
+    from zero: what cvt.rna.tf32.f32 gives, by integer ops on the bits."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_product(a, b, terms):
+    """a @ b as K4's tensor cores take it: each operand split into hi =
+    tf32(x) and lo = tf32(x - hi), the sum of the ``terms`` (3: lo hi + hi lo
+    + hi hi; 1: hi hi alone) taken exactly (f64) and rounded to the f32
+    accumulator."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    f = lambda x: x.astype(np.float64)  # noqa: E731
+    out = f(a_hi) @ f(b_hi)
+    if terms == 3:
+        out += f(a_lo) @ f(b_hi) + f(a_hi) @ f(b_lo)
+    return out.astype(np.float32)
+
+
+@pytest.mark.parametrize("terms", [3, 1], ids=["3xtf32", "tf32"])
+def test_tf32_split_keeps_f32_accuracy(terms):
+    """K4's products in 3xTF32 (csrc/flash_attention.cu) give K4's function
+    with the rel term and a mask within 1e-5 of the output's scale of an f64
+    reference; one TF32 pass does not, so the test can tell."""
+    q, k, v, E = _inputs(11, 1, 2, 200)
+    mask = np.ones((1, 200), np.float32)
+    mask[0, 150:] = 0.0
+    t = np.arange(200)
+    idx = np.clip(t[None, :] - t[:, None] + LEFT, 0, LEFT + RIGHT)
+    bias = (1.0 - mask) * np.finfo(np.float32).min
+
+    def attention(prod, dtype):
+        q_, k_, v_, E_ = (x.astype(dtype) for x in (q, k, v, E))
+        s = prod(q_, np.swapaxes(k_, -1, -2))
+        pos = q_ @ E_.T  # f32 FMAs in the kernel
+        s = (s + pos[:, :, t[:, None], idx]) * dtype(0.125) + bias[:, None, None, :].astype(dtype)
+        p = np.exp(s - s.max(-1, keepdims=True))
+        return prod(p, v_) / p.sum(-1, keepdims=True)
+
+    ref = attention(np.matmul, np.float64)
+    out = attention(lambda a, b: _split_product(a, b, terms), np.float32)
+    err = np.abs(out - ref).max() / np.abs(ref).max()
+    if terms == 3:
+        assert err <= 1e-5, err
+    else:
+        assert err > 1e-5, err

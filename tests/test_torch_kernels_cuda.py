@@ -164,7 +164,7 @@ def _attn_inputs(dev, B, H, T, seed=0):
 
 @pytest.mark.parametrize("has_mask", [True, False], ids=["mask", "nomask"])
 @pytest.mark.parametrize("has_rel", [True, False], ids=["rel", "norel"])
-@pytest.mark.parametrize("T", [1, 63, 64, 65, 600, 1500])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129, 600, 1499, 1500])
 def test_flash_attention_matches_plain(dev, T, has_rel, has_mask):
     q, k, v, E = _attn_inputs(dev, 2, 3, T, seed=T)
     E = E if has_rel else None
@@ -191,6 +191,23 @@ def test_flash_attention_all_masked_row(dev):
     torch.cuda.synchronize()
     ref = flash_attention_relkey_plain(q, k, v, E, mask)
     assert torch.isfinite(out).all()
+    assert torch.allclose(out, ref, atol=ATOL, rtol=0), (out - ref).abs().max().item()
+
+
+@pytest.mark.parametrize("left,right", [(3, 0), (0, 5), (64, 8), (100, 100)])
+def test_flash_attention_band_edges(dev, left, right):
+    """Other band widths than the conformer's: key tiles wholly left and
+    wholly right of a warp's band take the clamped ends of pos, the others
+    gather; one batch row fully masked, the other cut short."""
+    q, k, v, _ = _attn_inputs(dev, 2, 2, 300, seed=left + 7 * right)
+    E = torch.from_numpy((np.random.default_rng(right).standard_normal(
+        (left + right + 1, 64)) * 0.05).astype(np.float32)).to(dev)
+    mask = torch.ones((2, 300), device=dev)
+    mask[0] = 0.0
+    mask[1, 211:] = 0.0
+    out = flash_attention_relkey(q, k, v, E, mask, left=left, right=right)
+    torch.cuda.synchronize()
+    ref = flash_attention_relkey_plain(q, k, v, E, mask, left, right)
     assert torch.allclose(out, ref, atol=ATOL, rtol=0), (out - ref).abs().max().item()
 
 
@@ -293,7 +310,7 @@ def test_decode_attention_matches_plain(dev, B, dt):
 
 @pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("B", [1, 8, 32, 40])
+@pytest.mark.parametrize("B", [1, 8, 31, 32, 33, 40, 64])
 def test_decode_step_matches_plain(dev, B, dt, bias):
     from audiotoken_tpu_torch.ops.decode_step import (
         decode_ffn,
@@ -322,6 +339,47 @@ def test_decode_step_matches_plain(dev, B, dt, bias):
     _assert_kernel_close(y, decode_ffn_plain(x, a, wo, ln2w, ln2b, wi, w2, bo, bi, b2), "K7", dt)
 
 
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("C,H,N", [(40, 40, 24), (776, 3080, 136), (1000, 8192, 7),
+                                   (1024, 4096, 2312)])
+def test_decode_step_odd_widths(dev, C, H, N, dt):
+    """Widths that are not multiples of the k-splits or the column blocks,
+    up to the bf16 kernel's limits (an LN width of 1024, 8192 otherwise)."""
+    from audiotoken_tpu_torch.ops.decode_step import (
+        decode_ffn,
+        decode_ffn_plain,
+        decode_qkv,
+        decode_qkv_plain,
+    )
+
+    dtype = DECODE_DTYPES[dt]
+    x, a = _randn(dev, (5, C), dtype, 1), _randn(dev, (5, C), dtype, 2)
+    lnw, lnb = 1 + _randn(dev, (C,), dtype, 3, 0.1), _randn(dev, (C,), dtype, 4, 0.1)
+    w = _randn(dev, (N, C), dtype, 5, 0.02)
+    wo, wi, w2 = (_randn(dev, (C, C), dtype, 6, 0.02), _randn(dev, (H, C), dtype, 7, 0.02),
+                  _randn(dev, (C, H), dtype, 8, 0.02))
+    _assert_kernel_close(decode_qkv(x, lnw, lnb, w), decode_qkv_plain(x, lnw, lnb, w), "K7", dt)
+    _assert_kernel_close(decode_ffn(x, a, wo, lnw, lnb, wi, w2),
+                         decode_ffn_plain(x, a, wo, lnw, lnb, wi, w2), "K7", dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_decode_step_back_to_back_launches_agree(dev, dt):
+    """Two calls queued on one stream give the same bits: the k-splits are
+    summed in a fixed order, so a sampled decode is deterministic per seed."""
+    from audiotoken_tpu_torch.ops.decode_step import decode_ffn, decode_qkv
+
+    dtype, C = DECODE_DTYPES[dt], 768
+    x, a = _randn(dev, (8, C), dtype, 1), _randn(dev, (8, C), dtype, 2)
+    lnw = 1 + _randn(dev, (C,), dtype, 3, 0.1)
+    wq, wo = _randn(dev, (3 * C, C), dtype, 4, 0.02), _randn(dev, (C, C), dtype, 5, 0.02)
+    wi, w2 = _randn(dev, (4 * C, C), dtype, 6, 0.02), _randn(dev, (C, 4 * C), dtype, 7, 0.02)
+    runs = [(decode_qkv(x, lnw, None, wq), decode_ffn(x, a, wo, lnw, None, wi, w2))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
 def test_decode_kernels_refuse(dev):
     from audiotoken_tpu_torch.ops.decode_attention import decode_attention
     from audiotoken_tpu_torch.ops.decode_step import decode_qkv
@@ -339,6 +397,9 @@ def test_decode_kernels_refuse(dev):
     with pytest.raises(ValueError, match="not a multiple of 8"):
         x = torch.zeros((1, 12), device=dev)
         decode_qkv(x, x[0], None, torch.zeros((36, 12), device=dev))
+    with pytest.raises(ValueError, match="the bf16 kernel takes"):
+        x = torch.zeros((1, 1032), device=dev, dtype=torch.bfloat16)
+        decode_qkv(x, x[0], None, torch.zeros((16, 1032), device=dev, dtype=torch.bfloat16))
 
 
 def test_semantic_decode_runs_the_kernels(dev):
