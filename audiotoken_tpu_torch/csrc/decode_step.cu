@@ -521,8 +521,8 @@ int sm_count() {
 }
 
 // launch attributes: a cluster of `cluster` blocks (if > 1), and, with
-// `after_own` (the previous kernel of the stream is one of this file's),
-// programmatic dependent launch, so that the kernel may start before the
+// `after_own` (the previous kernel of the stream is one of this file's, or
+// K6), programmatic dependent launch, so that the kernel may start before the
 // previous one ends
 struct Attrs {
   cudaLaunchAttribute a[2];
@@ -625,7 +625,10 @@ int ffn(const T* x, const T* a, const T* wo, const T* bo, const T* ln_w, const T
         int H, float eps, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* none = nullptr;
-  cudaError_t err = gemv(a, none, none, wo, bo, x, x1, B, C, C, 0, eps, st);
+  // the first product may start during K6 (decode_attention.cu), which
+  // triggers its dependents at once: it reads only weights before its wait.
+  // After a kernel that does not trigger, it starts when that one ends.
+  cudaError_t err = gemv(a, none, none, wo, bo, x, x1, B, C, C, 0, eps, st, true);
   if (err == cudaSuccess)
     err = gemv((const T*)x1, ln_w, ln_b, wi, bi, none, h, B, C, H, 1, eps, st, true);
   if (err == cudaSuccess)

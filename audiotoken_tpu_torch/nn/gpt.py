@@ -8,8 +8,9 @@ attention, exact-GELU 4x MLP, weight-tied lm_head; 12 layers, 12 heads x
 :class:`GPT` holds the weights (linears in torch's ``[out, in]`` layout)
 and runs the full and the prefill forward in plain PyTorch. The decode
 step, one token a row over the KV cache, is the kernel path: per layer
-K7 ``decode_qkv`` -> K6 ``decode_attention`` (which also appends the token
-to the cache) -> K7 ``decode_ffn``, then ``ln_f`` and the tied logits as a
+K7 ``decode_qkv`` -> K6 ``decode_attention`` (which takes q unscaled from
+the qkv row and also appends the token to the cache) -> K7 ``decode_ffn``,
+chained by programmatic dependent launch on the card, then ``ln_f`` and the tied logits as a
 plain product. On a CPU tensor each kernel wrapper runs its plain version.
 
 :class:`GPTSampler` copies the JAX sampler's host logic: prompt buckets,
@@ -160,16 +161,13 @@ class GPT(nn.Module):
         gain the token's k and v at slot ``pos``; ``weights`` is
         :meth:`decode_weights`. -> logits [B, vocab] f32."""
         cfg = self.cfg
-        C, nh, eps = cfg.n_embd, cfg.n_head, cfg.layer_norm_eps
-        B = tok.shape[0]
-        scale = (C // nh) ** -0.5
+        C, eps = cfg.n_embd, cfg.layer_norm_eps
         x = self.wte[tok] + self.wpe[(pos - start).long()]
         for li, (ln1_w, ln1_b, w_qkv, b_qkv, w_out, b_out, ln2_w, ln2_b, w_in, b_in, w_out2,
                  b_out2) in enumerate(weights):
             qkv = decode_qkv(x, ln1_w, ln1_b, w_qkv, b_qkv, eps)
-            q = (qkv[:, :C] * scale).view(B, nh, C // nh)
-            a = decode_attention(q, k_cache[li], v_cache[li], start, pos,
-                                 qkv[:, C:2 * C], qkv[:, 2 * C:])
+            a = decode_attention(qkv[:, :C], k_cache[li], v_cache[li], start, pos,
+                                 qkv[:, C:2 * C], qkv[:, 2 * C:], chained=True)
             x = decode_ffn(x, a, w_out, ln2_w, ln2_b, w_in, w_out2, b_out, b_in, b_out2, eps)
         return self.logits(F.layer_norm(x, (C,), self.ln_f.weight, self.ln_f.bias, eps))
 

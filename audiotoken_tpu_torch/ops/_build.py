@@ -38,10 +38,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "seanet_front_f32": (_P, _P, _I, _I) + (_P,) * 8,
     "lstm_layer_f32": (_P, _P, _P, _P, _I, _I),
-    "rvq_encode_f32": (_P, _P, _P, _P, _I, _I, _I),
+    "rvq_encode_f32": (_P,) * 4 + (_I,) * 4,
     "flash_attention_relkey_f32": (_P,) * 6 + (_I,) * 5,
     **{f"flash_attention_plain_{t}": (_P,) * 4 + (_I,) * 2 for t in ("f32", "bf16")},
-    **{f"decode_attention_{t}": (_P,) * 7 + (_I,) * 5 for t in ("f32", "bf16")},
+    **{f"decode_attention_{t}": (_P,) * 7 + (_I,) * 6 for t in ("f32", "bf16")},
     **{f"decode_qkv_{t}": (_P,) * 6 + (_I,) * 3 + (_F,) for t in ("f32", "bf16")},
     **{f"decode_ffn_{t}": (_P,) * 13 + (_I,) * 3 + (_F,) for t in ("f32", "bf16")},
     **{f"attn_ablation_{t}": (_P,) * 4 + (_I,) * 4 for t in ("f32", "bf16")},

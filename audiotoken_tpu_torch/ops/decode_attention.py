@@ -15,7 +15,10 @@ orientations were (8, 128)-tile workarounds and are not carried over.
 Slot j of row b is attended iff ``start[b] <= j < pos``; the rows are
 left-padded, so ``start`` is where a row's prompt begins. After the
 attention, the call appends the token: k_new and v_new are written into
-slot ``pos`` of the caches, in place.
+slot ``pos`` of the caches, in place. q comes unscaled, as the column
+slice of the qkv projection that k_new and v_new are too; the function
+scales it by dh^-0.5 (the JAX package scales q before its kernel: 0.125
+is a power of two, so the bits are the same).
 """
 
 import torch
@@ -27,12 +30,12 @@ KERNEL_DH = 64
 
 
 def decode_attention_plain(q, k_cache, v_cache, start, pos: int, k_new, v_new):
-    """q [B, nh, dh] (pre-scaled by dh^-0.5); k_cache, v_cache
-    [B, nh, L, dh]; start [B] int32; k_new, v_new [B, nh*dh] -> the
+    """q, k_new, v_new [B, nh*dh] (q unscaled: it is scaled by dh^-0.5
+    here, in f32); k_cache, v_cache [B, nh, L, dh]; start [B] int32 -> the
     attention output [B, nh*dh] in the cache dtype, computed in f32. Writes
     k_new and v_new into slot ``pos`` of the caches."""
-    B, nh, dh = q.shape
-    qf = q.float()[:, :, None, :]  # [B, nh, 1, dh]
+    B, nh, _, dh = k_cache.shape
+    qf = (q.float() * dh**-0.5).reshape(B, nh, 1, dh)
     kn = k_new.reshape(B, nh, 1, dh)
     vn = v_new.reshape(B, nh, 1, dh)
     s = torch.matmul(qf, k_cache[:, :, :pos].float().transpose(-1, -2))  # [B, nh, 1, pos]
@@ -46,35 +49,39 @@ def decode_attention_plain(q, k_cache, v_cache, start, pos: int, k_new, v_new):
     return out.reshape(B, nh * dh).to(v_cache.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, start, pos: int, k_new, v_new):
+def decode_attention(q, k_cache, v_cache, start, pos: int, k_new, v_new,
+                     chained: bool = False):
     """The function of :func:`decode_attention_plain`, cache write
-    included. Launches K6 for CUDA tensors (bf16 or f32, dh = 64; k_new and
-    v_new may be column slices of the qkv projection) and runs the plain
-    version for CPU tensors."""
+    included. Launches K6 for CUDA tensors (bf16 or f32, dh = 64; q, k_new
+    and v_new may be column slices of the qkv projection, rows one stride
+    apart) and runs the plain version for CPU tensors. ``chained``: the call
+    sits in the decode step's chain of kernels, after decode_qkv (which
+    writes neither the caches nor ``start``) and before decode_ffn, so K6
+    may start reading the cache while decode_qkv runs, and decode_ffn may
+    start streaming its weights during K6 (programmatic dependent
+    launch)."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, start, pos, k_new, v_new)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    B, nh, dh = q.shape
+    B, nh, L, dh = k_cache.shape
     if dh != KERNEL_DH:
         raise ValueError(f"decode_attention: head size {dh}, the kernel takes {KERNEL_DH}")
     dt, dev = k_cache.dtype, q.device
     if dt not in _build.DTYPE_SUFFIX:
         raise ValueError(f"decode_attention: dtype {dt}, the kernel takes bf16 or f32")
-    L = k_cache.shape[2]
     if not 0 <= pos < L:
         raise ValueError(f"decode_attention: slot {pos} outside the cache's {L}")
-    _build.check_tensor(q, "q", (B, nh, dh), dt, dev, vector_loads=True)
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         _build.check_tensor(t, name, (B, nh, L, dh), dt, dev, vector_loads=True)
     _build.check_tensor(start, "start", (B,), torch.int32, dev)
-    for name, t in (("k_new", k_new), ("v_new", v_new)):
+    for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new)):
         _build.check_tensor(t, name, (B, nh * dh), dt, dev, vector_loads=True, strided_rows=True)
-    if k_new.stride(0) != v_new.stride(0):
-        raise ValueError("decode_attention: k_new and v_new rows must share a stride")
+    if not q.stride(0) == k_new.stride(0) == v_new.stride(0):
+        raise ValueError("decode_attention: q, k_new and v_new rows must share a stride")
     out = torch.empty((B, nh * dh), dtype=dt, device=dev)
     _build.launch(f"decode_attention_{_build.DTYPE_SUFFIX[dt]}", dev, q, k_cache, v_cache,
-                  start, k_new, v_new, out, B, nh, L, pos, k_new.stride(0))
+                  start, k_new, v_new, out, B, nh, L, pos, k_new.stride(0), int(chained))
     decode_attention.launches += 1
     return out
 

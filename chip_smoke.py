@@ -10,7 +10,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      shapes, with max-abs differences (K1, K2), code agreement (K3) and
      both times (CUDA events, warm-up, median of several runs); K2 at B=8
      and B=32 x 2250 steps, each against its plain version and cuDNN's
-     2-layer ``nn.LSTM`` in the same run, with microseconds a step;
+     2-layer ``nn.LSTM`` in the same run, with microseconds a step; K3 at
+     B=8, 1 and 32 x 30 s, with its bounds in 3xTF32 and as f32 FMAs;
   4. the main path through the entry points a user calls: ``AudioToken``
      encode of WAV files (one of 90 s, in 30 s chunks), then
      ``AcousticEncoder`` at 8 and 32 x 30 s of int16 PCM, with real-time
@@ -29,8 +30,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      cases) and ``api_semantic_m.npz`` under the semantic_m contract;
   3c. the decode kernels against their plain versions, bf16 and f32: K5
      (non-causal attention) at [8, 16, 1024, 64], with SDPA beside it, K6
-     (decode attention) at B=8 and B=32 over 1024 cache slots, with SDPA
-     over the cache and a mask of the attended slots beside it, and K7
+     (decode attention) at B=8 and B=32 over a 1024-slot cache at slots
+     1023, 640 and 256 (two calls must give the same bits), with SDPA over
+     the cache and a mask of the attended slots beside it, and once at B=8
+     as the decode step launches it (chained after decode_qkv), and K7
      (decode_qkv, decode_ffn); all three are timed with the device's queue
      filled first (``device_ms``): K6 and K7 take microseconds, less than
      their launch, and K5's tenth of a millisecond is not much more than its
@@ -68,11 +71,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 Every kernel entry carries ``bound_ms``, the least time the card could take
 for the same work: the larger of its operations over the H100's peak for
-their type (67 TFLOP/s f32 FMAs, 989 TFLOP/s bf16; K4's f32-accurate
-products in 3xTF32, three passes at 495 TFLOP/s, with the FMA bound beside
-it as ``bound_f32_ms``) and its bytes (each input read once, each output
-written once) over 3.35 TB/s; ``bound_by`` says which. ``library_ms`` is one PyTorch call computing the same function where
-there is one (timed here, never called by the port), else null.
+their type (67 TFLOP/s f32 FMAs, 989 TFLOP/s bf16; K3's and K4's
+f32-accurate products in 3xTF32, three passes at 495 TFLOP/s, with the FMA
+bound beside it as ``bound_f32_ms``) and its bytes (each input read once,
+each output written once) over 3.35 TB/s; ``bound_by`` says which.
+``library_ms`` is one PyTorch call computing the same function where there
+is one (timed here, never called by the port), else null.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -133,7 +137,7 @@ from audiotoken_tpu_torch.ops.flash_attention import (  # noqa: E402
     noncausal_attention_plain,
 )
 from audiotoken_tpu_torch.ops.lstm import lstm_layer, lstm_layer_plain  # noqa: E402
-from audiotoken_tpu_torch.ops.rvq import rvq_encode, rvq_encode_plain  # noqa: E402
+from audiotoken_tpu_torch.ops.rvq import rvq_encode, rvq_encode_plain, rvq_plan  # noqa: E402
 from audiotoken_tpu_torch.ops.seanet_front import seanet_front, seanet_front_plain  # noqa: E402
 from audiotoken_tpu_torch.runtime.precision import get_policy  # noqa: E402
 
@@ -357,24 +361,39 @@ def phase3_kernels(dev):
         del h, h_in, xi, out
     del lib
 
-    # K3 on the latents of real SEANet output for the same audio
+    # K3 on the latents of real SEANet output for the same audio: B=8 (the
+    # main path's shape, which the kernels line reports), then B=1 and B=32
+    # (the B=8 latents four times over: the same work as 32 rows)
     with torch.inference_mode():
-        z = enc.seanet(x).float().contiguous()
+        z8 = enc.seanet(x).float().contiguous()
     cb = enc.quantizer.codebooks
-    out = rvq_encode(cb, z, 16)
-    ref = rvq_encode_plain(cb, z, 16)
-    agree = (out == ref).float().mean().item()
     recon = lambda c: sum(cb[k][c[:, k]] for k in range(16))  # noqa: E731
-    err = (recon(out.long()) - recon(ref.long())).abs().max().item()
-    ms = cuda_ms(lambda: rvq_encode(cb, z, 16))
-    plain_ms = cuda_ms(lambda: rvq_encode_plain(cb, z, 16))
-    say(f"[3] K3 rvq 16 x 1024 x 128 over [8, 2250, 128]: code agreement {agree:.6f}  "
-        f"max|recon diff| {err:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
-    if not agree >= RVQ_AGREEMENT:
-        raise AssertionError(f"K3 codes agree with its plain version at {agree}")
-    # every frame's residual against every entry of each of the 16 codebooks
-    res["rvq"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                      **bound(2 * z.numel() * 16 * cb.shape[1], nbytes(z, cb[:16], out), "f32"))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B, z in ((8, z8), (1, z8[:1].contiguous()), (32, z8.repeat(4, 1, 1))):
+        split = rvq_plan(B * 2250, sms)  # blocks a cluster that split the codewords
+        out = rvq_encode(cb, z, 16)
+        ref = rvq_encode_plain(cb, z, 16)
+        agree = (out == ref).float().mean().item()
+        err = (recon(out.long()) - recon(ref.long())).abs().max().item()
+        ms = cuda_ms(lambda: rvq_encode(cb, z, 16))
+        plain_ms = cuda_ms(lambda: rvq_encode_plain(cb, z, 16))
+        # every frame's residual against every entry of each of the 16 codebooks,
+        # f32-accurate: in 3xTF32 on the tensor cores, and as f32 FMAs beside it
+        flops, moved = 2 * z.numel() * 16 * cb.shape[1], nbytes(z, cb[:16], out)
+        b, b32 = bound(flops, moved, "tf32x3"), bound(flops, moved, "f32")["bound_ms"]
+        say(f"[3] K3 rvq 16 x 1024 x 128 over [{B}, 2250, 128] (split {split}): "
+            f"code agreement {agree:.6f}  max|recon diff| {err:.3e}  kernel {ms:.3f} ms  plain "
+            f"{plain_ms:.3f} ms  bound {b['bound_ms']:.3f} ms in 3xTF32 ({b['bound_by']}), "
+            f"{b32:.3f} ms as f32 FMAs")
+        if not agree >= RVQ_AGREEMENT:
+            raise AssertionError(f"K3 codes agree with its plain version at {agree} at B={B}")
+        if B == 8:
+            res["rvq"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                              agreement=agree, **b, bound_f32_ms=b32)
+        else:
+            res["rvq"].update({f"ms_b{B}": ms, f"plain_ms_b{B}": plain_ms,
+                               f"bound_ms_b{B}": b["bound_ms"], f"bound_f32_ms_b{B}": b32,
+                               f"agreement_b{B}": agree})
     return res
 
 
@@ -647,39 +666,60 @@ def phase3c_decode_kernels(dev):
         del q, k, v
 
         for B in (8, 32):
-            nh, L, pos = 12, 1024, 1023
-            q = _randn(dev, (B, nh, 64), dt, 4, 0.125)
+            nh, L = 12, 1024
             kc, vc = _randn(dev, (B, nh, L, 64), dt, 5), _randn(dev, (B, nh, L, 64), dt, 6)
             qkv = _randn(dev, (B, 3 * nh * 64), dt, 7)
-            kn, vn = qkv[:, nh * 64: 2 * nh * 64], qkv[:, 2 * nh * 64:]
-            start = torch.from_numpy(
-                np.random.default_rng(B).integers(0, 700, B).astype(np.int32)).to(dev)
-            start[0], start[1] = 0, pos  # a full row; a row with no valid slot
-            out = decode_attention(q, kc, vc, start, pos, kn, vn)
-            err = _compare("K6", out, decode_attention_plain(q, kc, vc, start, pos, kn, vn), dt)
-            ms = device_ms(lambda: decode_attention(q, kc, vc, start, pos, kn, vn))
-            plain_ms = device_ms(lambda: decode_attention_plain(q, kc, vc, start, pos, kn, vn))
-            # the library yardstick: SDPA of the one-token query over the cache
-            # with the token's k and v already in slot pos (written here, outside
-            # the timed call) and a boolean mask of the slots [start, pos]
-            kl, vl = kc.clone(), vc.clone()
-            kl[:, :, pos], vl[:, :, pos] = kn.view(B, nh, 64), vn.view(B, nh, 64)
-            slot = torch.arange(L, device=dev)[None, :]
-            mask = ((slot >= start.long()[:, None]) & (slot <= pos))[:, None, None, :]
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q[:, :, None], kl, vl, attn_mask=mask, scale=1.0)
-            lib_err = (lib().reshape(B, nh * 64).float() - out.float()).abs().max().item()
-            library_ms = device_ms(lib)
-            del kl, vl
-            say(f"[3c] K6 decode_attention B={B} x 12 heads, 1024 slots {dt}: max|kernel-plain| "
-                f"{err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  SDPA with the slot mask "
-                f"{library_ms:.4f} ms (max|kernel-SDPA| {lib_err:.3e})")
-            # this run's data: each row reads its slots [start, pos) of k and v
-            slots = int((pos - start).sum().item())
-            es = q.element_size()
-            moved = (2 * slots * nh * 64 + 2 * q.numel() + 4 * B * nh * 64) * es
-            record("decode_attention", dt, B, err, ms, plain_ms, 4 * (slots + B) * nh * 64, moved,
-                   library_ms)
+            # q, k_new, v_new: strided rows of the qkv projection, q unscaled
+            q, kn, vn = qkv[:, :nh * 64], qkv[:, nh * 64: 2 * nh * 64], qkv[:, 2 * nh * 64:]
+            for pos in (1023, 640, 256):
+                start = torch.from_numpy(
+                    np.random.default_rng(B).integers(0, 700 * pos // 1023, B).astype(np.int32)
+                ).to(dev)
+                start[0], start[1] = 0, pos  # a full row; a row with no valid slot
+                out = decode_attention(q, kc, vc, start, pos, kn, vn)
+                again = decode_attention(q, kc, vc, start, pos, kn, vn)
+                if not torch.equal(out, again):
+                    raise AssertionError(f"K6 {dt} B={B}: two calls differ")
+                err = _compare("K6", out, decode_attention_plain(q, kc, vc, start, pos, kn, vn),
+                               dt)
+                ms = device_ms(lambda: decode_attention(q, kc, vc, start, pos, kn, vn))
+                plain_ms = device_ms(
+                    lambda: decode_attention_plain(q, kc, vc, start, pos, kn, vn))
+                # the library yardstick: SDPA of the one-token query (scaled) over
+                # the cache with the token's k and v already in slot pos (written
+                # here, outside the timed call) and a boolean mask of the slots
+                # [start, pos]
+                kl, vl = kc.clone(), vc.clone()
+                kl[:, :, pos], vl[:, :, pos] = kn.view(B, nh, 64), vn.view(B, nh, 64)
+                slot = torch.arange(L, device=dev)[None, :]
+                mask = ((slot >= start.long()[:, None]) & (slot <= pos))[:, None, None, :]
+                qs = (q * 0.125).reshape(B, nh, 1, 64)
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    qs, kl, vl, attn_mask=mask, scale=1.0)
+                lib_err = (lib().reshape(B, nh * 64).float() - out.float()).abs().max().item()
+                library_ms = device_ms(lib)
+                del kl, vl
+                # this run's data: each row reads its slots [start, pos) of k and v
+                slots = int((pos - start.clamp(max=pos)).sum().item())
+                es = q.element_size()
+                # (q, k_new and v_new in; the output and the appended slot out)
+                moved = (2 * slots * nh * 64 + 6 * B * nh * 64) * es
+                b = bound(4 * (slots + B) * nh * 64, moved, "bf16")
+                say(f"[3c] K6 decode_attention B={B} x 12 heads, slot {pos} of 1024 {dt}: "
+                    f"max|kernel-plain| {err:.3e}, two calls equal  kernel {ms:.4f} ms  plain "
+                    f"{plain_ms:.4f} ms  SDPA with the slot mask {library_ms:.4f} ms "
+                    f"(max|kernel-SDPA| {lib_err:.3e})  bound {b['bound_ms']:.4f} ms "
+                    f"({b['bound_by']}, {slots} slots read)")
+                if pos == 1023:
+                    record("decode_attention", dt, B, err, ms, plain_ms,
+                           4 * (slots + B) * nh * 64, moved, library_ms)
+                    if dt == torch.bfloat16 and B == 32:
+                        res["decode_attention"].update(ms_b32=ms, plain_ms_b32=plain_ms,
+                                                       library_ms_b32=library_ms,
+                                                       bound_ms_b32=b["bound_ms"])
+                elif dt == torch.bfloat16:
+                    res["decode_attention"][f"ms_b{B}_pos{pos}"] = ms
+                    res["decode_attention"][f"bound_ms_b{B}_pos{pos}"] = b["bound_ms"]
 
             C = 768
             x, a = _randn(dev, (B, C), dt, 10), _randn(dev, (B, C), dt, 11)
@@ -697,6 +737,19 @@ def phase3c_decode_kernels(dev):
                         f"kernel {device_ms(lambda: fn(*args)):.4f} ms (weights warm)")
                 else:
                     res[name]["max_abs_err_bf16"] = max(res[name].get("max_abs_err_bf16", 0.0), err)
+            if B == 8:  # K6 as the decode step launches it: chained after decode_qkv
+                qkv = decode_qkv(*qkv_args)
+                q, kn, vn = qkv[:, :C], qkv[:, C:2 * C], qkv[:, 2 * C:]
+                start = torch.zeros(B, dtype=torch.int32, device=dev)
+                start[1] = 1023  # a row with no valid slot
+                out = decode_attention(q, kc, vc, start, 1023, kn, vn, chained=True)
+                err = _compare("K6 chained", out,
+                               decode_attention_plain(q, kc, vc, start, 1023, kn, vn), dt)
+                key = "max_abs_err" if dt == torch.float32 else "max_abs_err_bf16"
+                r = res["decode_attention"]
+                r[key] = max(r.get(key, 0.0), err)
+                say(f"[3c] K6 decode_attention B=8, slot 1023 {dt}, chained after decode_qkv: "
+                    f"max|kernel-plain| {err:.3e}")
             if dt == torch.bfloat16:
                 _k7_cold(dev, res, x, a, ln1, ln2, (wqkv,), (wo, wi, w2))
     return res

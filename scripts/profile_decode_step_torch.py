@@ -12,12 +12,19 @@ At the semantic decode's GPT width (768, MLP 3072, bf16) it prints:
     launches enough that the device may wait between two kernels even so:
     read each kernel's own duration, and the span as an upper bound. A
     kernel that starts before its predecessor ends was launched early
-    (programmatic dependent launch) and waits inside.
+    (programmatic dependent launch) and waits inside;
+  * the chain of one decode step's layers, decode_qkv -> K6 -> decode_ffn
+    over 12 layers with a 1024-slot cache at slot 1023, weights cold, its
+    device time a step with the queue filled behind a device sleep: K6
+    chained by programmatic dependent launch (as the decode step runs it)
+    and launched after its predecessor ends, in turns, so that the two can
+    be compared within one run.
 Needs a CUDA device; imports no JAX.
 """
 
 import argparse
 import os
+import statistics
 import sys
 
 import torch
@@ -25,9 +32,11 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from audiotoken_tpu_torch.ops.decode_attention import decode_attention  # noqa: E402
 from audiotoken_tpu_torch.ops.decode_step import decode_ffn, decode_qkv  # noqa: E402
 
 C, SETS = 768, 8  # 8 layers' weights: 113 MB, more than the 50 MB L2
+N_LAYER, NH, SLOTS = 12, 12, 1024
 
 
 def floor_us(dev, n=200):
@@ -94,6 +103,49 @@ def main():
               f"(median of {len(spans)} calls); kernels of the last call:")
         for kname, t0, t1 in tl:
             print(f"    {kname:20s} {t0:6.2f} .. {t1:6.2f} us ({t1 - t0:.2f})")
+    times = {True: [], False: []}
+    for i in range(10):  # in turns, each side first in half the pairs
+        for chained in ((False, True) if i % 2 else (True, False)):
+            times[chained].append(step_us(dev, layers, x, ln, B, chained))
+    for chained in (True, False):
+        print(f"  decode step, 12 layers of qkv -> K6 -> ffn, slot {SLOTS - 1}, K6 "
+              f"{'chained' if chained else 'after its predecessor'}: median "
+              f"{statistics.median(times[chained]):.1f} us of device time (runs "
+              + ", ".join(f"{t:.1f}" for t in times[chained]) + ")")
+    wins = sum(c < u for c, u in zip(times[True], times[False]))
+    print(f"  chained faster in {wins} of {len(times[True])} pairs")
+
+
+def step_us(dev, layers, x, ln, B, chained, n=6):
+    """Device time of one decode step's 12 layers of qkv -> K6 -> ffn, in
+    us, the queue filled behind a device sleep (``n`` steps, 84 launches
+    each: more would fill the launch queue, and the host would show)."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    kc = [torch.randn((B, NH, SLOTS, 64), generator=g, device=dev).to(x.dtype)
+          for _ in range(N_LAYER)]
+    vc = [torch.randn((B, NH, SLOTS, 64), generator=g, device=dev).to(x.dtype)
+          for _ in range(N_LAYER)]
+    start = torch.zeros(B, dtype=torch.int32, device=dev)
+
+    def step():
+        h = x
+        for li in range(N_LAYER):
+            L = layers[li % len(layers)]
+            qkv = decode_qkv(h, ln, None, L["qkv"])
+            a = decode_attention(qkv[:, :C], kc[li], vc[li], start, SLOTS - 1, qkv[:, C:2 * C],
+                                 qkv[:, 2 * C:], chained=chained)
+            h = decode_ffn(h, a, L["out"], ln, None, L["fc"], L["proj"])
+
+    step()
+    torch.cuda.synchronize()
+    start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start_ev.record()
+    for _ in range(n):
+        step()
+    end_ev.record()
+    end_ev.synchronize()
+    return start_ev.elapsed_time(end_ev) * 1e3 / n
 
 
 if __name__ == "__main__":

@@ -95,17 +95,24 @@ B6, NH, DH, L6, POS = 4, 3, 64, 40, 33
 
 
 def _k6_inputs(tdt):
+    """q, k_new and v_new as column slices of one qkv row (q unscaled, as
+    the decode step passes them), the caches and the rows' starts."""
     rng = np.random.default_rng(7)
 
     def t(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(tdt)
 
-    q = (t(B6, NH, DH) * 0.125).to(tdt)
+    qkv = t(B6, 3 * NH * DH)
+    q, k_new, v_new = qkv[:, :NH * DH], qkv[:, NH * DH: 2 * NH * DH], qkv[:, 2 * NH * DH:]
     k_cache, v_cache = t(B6, NH, L6, DH), t(B6, NH, L6, DH)
-    k_new, v_new = t(B6, NH * DH), t(B6, NH * DH)
     # a prompt that fills its bucket, a ragged start, one real token, none
     start = torch.tensor([0, 9, POS - 1, POS], dtype=torch.int32)
     return q, k_cache, v_cache, start, k_new, v_new
+
+
+def _scaled(q):
+    """The JAX package's q: [B, nh, dh], times dh^-0.5 before its kernel."""
+    return (q * DH**-0.5).to(q.dtype).reshape(q.shape[0], NH, DH)
 
 
 def _jax_layout(k_cache, v_cache, start, jdt):
@@ -122,7 +129,7 @@ def test_k6_plain_matches_fused_pallas(dt):
     tdt, jdt = DTYPES[dt]
     q, k_cache, v_cache, start, k_new, v_new = _k6_inputs(tdt)
     kj, vj, valid = _jax_layout(k_cache, v_cache, start, jdt)
-    ref = jax_decode_fused(_to_jax(q, jdt), kj, vj, valid, _to_jax(k_new, jdt),
+    ref = jax_decode_fused(_to_jax(_scaled(q), jdt), kj, vj, valid, _to_jax(k_new, jdt),
                            _to_jax(v_new, jdt), interpret=True)
     out = decode_attention_plain(q, k_cache, v_cache, start, POS, k_new, v_new)
     assert out.dtype == tdt
@@ -136,8 +143,9 @@ def test_k6_plain_matches_partials_after_combine():
     (nn/gpt.py's "kernel" decode path) is the same function, in f32."""
     q, k_cache, v_cache, start, k_new, v_new = _k6_inputs(torch.float32)
     kj, vj, valid = _jax_layout(k_cache, v_cache, start, jnp.float32)
-    acc, m, l = jax_decode_attention(jnp.asarray(q.numpy()), kj, vj, valid, interpret=True)
-    qn, kn, vn = q.numpy(), k_new.numpy().reshape(B6, NH, DH), v_new.numpy().reshape(B6, NH, DH)
+    qn = _scaled(q).numpy()
+    acc, m, l = jax_decode_attention(jnp.asarray(qn), kj, vj, valid, interpret=True)
+    kn, vn = k_new.numpy().reshape(B6, NH, DH), v_new.numpy().reshape(B6, NH, DH)
     s1 = (qn * kn).sum(-1, keepdims=True)
     mx = np.maximum(np.asarray(m), s1)
     alpha, w = np.exp(np.asarray(m) - mx), np.exp(s1 - mx)
@@ -156,6 +164,102 @@ def test_k6_appends_the_token_and_reads_only_older_slots():
     assert torch.equal(k2[:, :, POS], k_new.view(B6, NH, DH))
     assert torch.equal(v2[:, :, POS], v_new.view(B6, NH, DH))
     assert torch.equal(k2[:, :, :POS], k_cache[:, :, :POS])
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_k6_unscaled_q_gives_the_prescaled_bits(dt):
+    """K6 takes q unscaled from the qkv row and scales it by 0.125 in f32
+    after loading; the decode step used to scale it first, in the cache
+    dtype. 0.125 is a power of two, so both give the same bits."""
+    tdt, _ = DTYPES[dt]
+    q, k_cache, v_cache, start, k_new, v_new = _k6_inputs(tdt)
+    out = decode_attention_plain(q, k_cache.clone(), v_cache.clone(), start, POS, k_new, v_new)
+    # the former function: q pre-scaled in the cache dtype, read as f32
+    qf = _scaled(q).float()[:, :, None, :]
+    kn, vn = k_new.reshape(B6, NH, 1, DH).float(), v_new.reshape(B6, NH, 1, DH).float()
+    s = torch.matmul(qf, k_cache[:, :, :POS].float().transpose(-1, -2))
+    valid = torch.arange(POS)[None, :] >= start.long()[:, None]
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    p = torch.softmax(torch.cat([s, (qf * kn).sum(-1, keepdim=True)], dim=-1), dim=-1)
+    ref = torch.matmul(p[..., :POS], v_cache[:, :, :POS].float()) + p[..., POS:] * vn
+    assert torch.equal((q.float() * 0.125).reshape(B6, NH, DH), qf[:, :, 0])
+    assert torch.equal(out, ref.reshape(B6, NH * DH).to(tdt))
+
+
+# K6's combine, transcribed: csrc/decode_attention.cu splits one (b, h)'s
+# slots [0, pos) over a cluster of S blocks, block r taking [r c, (r + 1) c)
+# with c = ceil(pos / S), clipped to [start, pos); a block reads its range
+# in tiles of 64 slots, warp w scoring slots w*16 .. w*16 + 15 of a tile
+# with an online softmax; the warps' partials, then the blocks', are
+# combined in order, a partial with no valid slot (m = -inf) weighing 0.
+K6_TILE, K6_WARPS = 64, 4
+
+
+def _weight(m, mx):
+    return np.float32(0.0) if m == -np.inf else np.exp(np.float32(m - mx))
+
+
+def _k6_transcribed(qs, kc, vc, st, pos, kn, vn, S):
+    """One (b, h): qs [64] (scaled), kc, vc [L, 64], kn, vn [64], all f32."""
+    chunk = -(-pos // S) if pos else 0
+    st = min(max(st, 0), pos)
+    parts = []
+    for r in range(S):
+        lo, hi = max(r * chunk, st), min((r + 1) * chunk, pos)
+        n = max(hi - lo, 0)
+        warps = [(-np.inf, np.float32(0), np.zeros(DH, np.float32)) for _ in range(K6_WARPS)]
+        for t0 in range(0, n, K6_TILE):
+            slots = min(K6_TILE, n - t0)
+            for w in range(K6_WARPS):
+                m, l, acc = warps[w]
+                j = np.arange(w * 16, w * 16 + 16)
+                j = j[j < slots]
+                sc = kc[lo + t0 + j] @ qs
+                mn = max(m, sc.max()) if j.size else m
+                if mn == -np.inf:
+                    continue
+                alpha = np.exp(np.float32(m - mn)) if m != -np.inf else np.float32(0)
+                p = np.exp(sc - mn)
+                warps[w] = (mn, l * alpha + p.sum(), acc * alpha + p @ vc[lo + t0 + j])
+        mx = max(m for m, _, _ in warps)
+        cs = [_weight(m, mx) for m, _, _ in warps]
+        parts.append((mx, sum(c * l for c, (_, l, _) in zip(cs, warps)),
+                      sum(c * a for c, (_, _, a) in zip(cs, warps))))
+    ss = np.float32(qs @ kn)
+    mx = max([ss] + [m for m, _, _ in parts])
+    cs = [_weight(m, mx) for m, _, _ in parts]
+    w = np.exp(np.float32(ss - mx))
+    num = sum(c * a for c, (_, _, a) in zip(cs, parts)) + w * vn
+    den = sum(c * l for c, (_, l, _) in zip(cs, parts)) + w
+    return num / den
+
+
+@pytest.mark.parametrize("S", range(1, 9))
+@pytest.mark.parametrize("pos", [0, 1, 63, 64, 65, 127, 1023])
+def test_k6_cluster_combine_matches_plain(pos, S):
+    """The transcription against decode_attention_plain (f32): rows that
+    start at 0, at pos (no valid slot), past pos, one slot before pos (every
+    block but the last empty) and in the middle (the first blocks empty)."""
+    L, B, nh = 1024, 5, 2
+    rng = np.random.default_rng(pos * 8 + S)
+    kc = rng.standard_normal((B, nh, L, DH)).astype(np.float32)
+    vc = rng.standard_normal((B, nh, L, DH)).astype(np.float32)
+    qkv = rng.standard_normal((B, 3 * nh * DH)).astype(np.float32)
+    start = np.array([0, pos, pos + 7, pos - 1, pos // 2], np.int32)
+    t = torch.from_numpy
+    q, kn, vn = (t(qkv[:, i * nh * DH:(i + 1) * nh * DH]) for i in range(3))
+    ref = decode_attention_plain(q, t(kc.copy()), t(vc.copy()), t(start), pos, kn, vn).numpy()
+    with np.errstate(invalid="raise", over="raise"):
+        for b in range(B):
+            for h in range(nh):
+                cols = slice(h * DH, (h + 1) * DH)
+                qs = q.numpy()[b, cols] * np.float32(0.125)
+                out = _k6_transcribed(qs, kc[b, h], vc[b, h], int(start[b]), pos,
+                                      kn.numpy()[b, cols], vn.numpy()[b, cols], S)
+                assert np.isfinite(out).all()
+                np.testing.assert_allclose(out, ref[b, cols], rtol=0, atol=2e-6)
+    np.testing.assert_array_equal(ref[1], vn.numpy()[1])  # no valid slot: v_new
+    np.testing.assert_array_equal(ref[2], vn.numpy()[2])
 
 
 # --- K7 ---------------------------------------------------------------------
@@ -228,11 +332,10 @@ def test_wrappers_refuse_other_devices():
     m = torch.empty((1, 2, 8, 64), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention_plain(m, m, m)
-    q = torch.empty((1, 2, 64), device="meta")
     cache = torch.empty((1, 2, 4, 64), device="meta")
     row = torch.empty((1, 128), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        decode_attention(q, cache, cache, torch.empty(1, device="meta"), 1, row, row)
+        decode_attention(row, cache, cache, torch.empty(1, device="meta"), 1, row, row)
     x = torch.empty((1, 64), device="meta")
     w = torch.empty((64, 64), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):

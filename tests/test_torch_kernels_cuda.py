@@ -16,6 +16,7 @@ import torch
 from audiotoken_tpu_torch.encoders import AcousticEncoder, Wav2VecBertEncoder
 from audiotoken_tpu_torch.nn.rvq import RVQConfig, init_codebooks
 from audiotoken_tpu_torch.nn.seanet import SeanetConfig, SeanetEncoder, init_encoder_params
+from audiotoken_tpu_torch.ops import rvq as rvq_ops
 from audiotoken_tpu_torch.ops.flash_attention import (
     flash_attention_relkey,
     flash_attention_relkey_plain,
@@ -138,6 +139,45 @@ def test_rvq_tie_takes_first_index(dev):
     x = cb[0, [5, 700, 5]][None] + 0.01 * rng.standard_normal((1, 3, 128)).astype(np.float32)
     codes = rvq_encode(torch.from_numpy(cb).to(dev), torch.from_numpy(x).to(dev), 2)
     assert codes[0, 0].tolist() == [5, 5, 5]
+
+
+# K3 against its plain version: chip_smoke.py's bound (late-codebook near-ties
+# may flip: the kernel's products are 3xTF32, the plain version's IEEE f32)
+RVQ_AGREEMENT = 0.999
+
+
+@pytest.mark.parametrize("num_q", [2, 8, 16])
+@pytest.mark.parametrize("N", [1, 2250, 18000, 72000])
+def test_rvq_sizes_match_plain(dev, N, num_q):
+    """From one 30 s row to 32: each size's plan (warps a block, a cluster
+    split of the codewords where the row tiles are few). Codewords 600-699
+    repeat 100-199 exactly: a later copy is never chosen."""
+    rng = np.random.default_rng(N + num_q)
+    cb = init_codebooks(rng, RVQConfig())
+    cb[:, 600:700] = cb[:, 100:200]
+    cb = torch.from_numpy(cb).to(dev)
+    x = torch.from_numpy(rng.standard_normal((1, N, 128)).astype(np.float32) * 2).to(dev)
+    before = rvq_encode.launches
+    out = rvq_encode(cb, x, num_q)
+    torch.cuda.synchronize()
+    assert rvq_encode.launches == before + 1
+    ref = rvq_encode_plain(cb, x, num_q)
+    assert out.shape == ref.shape == (1, num_q, N)
+    assert (out == ref).float().mean().item() >= RVQ_AGREEMENT
+    assert not ((out >= 600) & (out < 700)).any()
+
+
+def test_rvq_plans_agree(dev):
+    """Every cluster split of the codewords computes each distance with the
+    same products in the same order: the codes are the same bits whatever
+    the split."""
+    cb = torch.from_numpy(init_codebooks(np.random.default_rng(1), RVQConfig())).to(dev)
+    x = torch.from_numpy(
+        np.random.default_rng(2).standard_normal((1, 2250, 128)).astype(np.float32)).to(dev)
+    codes = [rvq_ops._launch(cb, x, 16, split) for split in rvq_ops.SPLITS]
+    torch.cuda.synchronize()
+    for c in codes[1:]:
+        assert torch.equal(c, codes[0])
 
 
 def test_encoder_runs_the_kernels(dev):
@@ -284,11 +324,11 @@ def test_decode_attention_matches_plain(dev, B, dt):
 
     dtype, nh, L, pos = DECODE_DTYPES[dt], 12, 1024, 1000
     rng = np.random.default_rng(B)
-    q = _randn(dev, (B, nh, 64), dtype, 4, 0.125)
     kc = _randn(dev, (B, nh, L, 64), dtype, 5)
     vc = _randn(dev, (B, nh, L, 64), dtype, 6)
     qkv = _randn(dev, (B, 3 * nh * 64), dtype, 7)
-    k_new, v_new = qkv[:, nh * 64: 2 * nh * 64], qkv[:, 2 * nh * 64:]  # strided rows
+    # q, k_new, v_new: strided rows of the qkv projection, q unscaled
+    q, k_new, v_new = qkv[:, :nh * 64], qkv[:, nh * 64: 2 * nh * 64], qkv[:, 2 * nh * 64:]
     start = rng.integers(0, 600, B).astype(np.int32)
     start[0] = 0  # a prompt that fills its bucket
     if B > 1:
@@ -306,6 +346,78 @@ def test_decode_attention_matches_plain(dev, B, dt):
     assert torch.equal(k2, kc) and torch.equal(v2, vc)  # both appended slot pos
     if B > 2:
         assert torch.equal(out[2], v_new[2])
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("pos", [0, 1, 63, 64, 65, 127, 1023, 2047])
+@pytest.mark.parametrize("B", [1, 8, 32])
+def test_decode_attention_edges(dev, B, pos, dt):
+    """K6's cluster split at the edges of its slot ranges (S = ceil(pos /
+    64) blocks, at most 8), with L = 2048: rows that start at 0, at pos (no
+    valid slot), past pos, and at random; in the chained launch of the
+    decode step and alone. Two calls give the same bits, and the caches
+    change at slot pos only."""
+    from audiotoken_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+
+    dtype, nh, L = DECODE_DTYPES[dt], 12, 2048
+    kc = _randn(dev, (B, nh, L, 64), dtype, pos + 5)
+    vc = _randn(dev, (B, nh, L, 64), dtype, pos + 6)
+    qkv = _randn(dev, (B, 3 * nh * 64), dtype, pos + 7)
+    q, k_new, v_new = qkv[:, :nh * 64], qkv[:, nh * 64: 2 * nh * 64], qkv[:, 2 * nh * 64:]
+    start = np.random.default_rng(pos).integers(0, pos + 1, B).astype(np.int32)
+    start[0] = 0
+    if B > 1:
+        start[1] = pos
+    if B > 2:
+        start[2] = pos + 5  # past pos: no valid slot either
+    start = torch.from_numpy(start).to(dev)
+    ref = decode_attention_plain(q, kc.clone(), vc.clone(), start, pos, k_new, v_new)
+    outs = []
+    for chained in (False, True, True):
+        k2, v2 = kc.clone(), vc.clone()
+        outs.append(decode_attention(q, k2, v2, start, pos, k_new, v_new, chained=chained))
+        torch.cuda.synchronize()
+        assert torch.equal(k2[:, :, pos], k_new.view(B, nh, 64))
+        assert torch.equal(v2[:, :, pos], v_new.view(B, nh, 64))
+        k2[:, :, pos], v2[:, :, pos] = kc[:, :, pos], vc[:, :, pos]
+        assert torch.equal(k2, kc) and torch.equal(v2, vc)
+    _assert_kernel_close(outs[0], ref, "K6", dt)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
+    assert torch.isfinite(outs[0].float()).all()
+    if B > 1:
+        assert torch.equal(outs[0][1], v_new[1])
+    if B > 2:
+        assert torch.equal(outs[0][2], v_new[2])
+
+
+def test_decode_attention_chained_after_qkv(dev):
+    """The decode step's chain, qkv -> K6 -> ffn, over consecutive slots:
+    with programmatic dependent launch (K6 reading the cache while qkv
+    runs, ffn streaming its weights during K6) the same bits as launched one
+    after the other, caches included."""
+    from audiotoken_tpu_torch.ops.decode_attention import decode_attention
+    from audiotoken_tpu_torch.ops.decode_step import decode_ffn, decode_qkv
+
+    dtype, B, C, nh, L = torch.bfloat16, 8, 768, 12, 256
+    x = _randn(dev, (B, C), dtype, 1)
+    lnw = 1 + _randn(dev, (C,), dtype, 2, 0.1)
+    wq, wo = _randn(dev, (3 * C, C), dtype, 3, 0.02), _randn(dev, (C, C), dtype, 4, 0.02)
+    wi, w2 = _randn(dev, (4 * C, C), dtype, 5, 0.02), _randn(dev, (C, 4 * C), dtype, 6, 0.02)
+    kc, vc = _randn(dev, (B, nh, L, 64), dtype, 7), _randn(dev, (B, nh, L, 64), dtype, 8)
+    start = torch.arange(B, dtype=torch.int32, device=dev) * 9
+    runs = []
+    for chained in (True, False):
+        k2, v2, h = kc.clone(), vc.clone(), x
+        for pos in range(100, 164):
+            qkv = decode_qkv(h, lnw, None, wq)
+            a = decode_attention(qkv[:, :C], k2, v2, start, pos, qkv[:, C:2 * C],
+                                 qkv[:, 2 * C:], chained=chained)
+            h = decode_ffn(h, a, wo, lnw, None, wi, w2)
+        torch.cuda.synchronize()
+        runs.append((h, k2, v2))
+    assert torch.isfinite(runs[0][0].float()).all()
+    for u, w in zip(*runs):
+        assert torch.equal(u, w)
 
 
 @pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
@@ -388,12 +500,14 @@ def test_decode_kernels_refuse(dev):
     q = torch.zeros((1, 2, 8, 64), device=dev, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
         flash_attention_plain(q, q, q)
-    qd = torch.zeros((1, 2, 64), device=dev)
     cache = torch.zeros((1, 2, 4, 64), device=dev)
     row = torch.zeros((1, 128), device=dev)
     start = torch.zeros(1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="outside the cache"):
-        decode_attention(qd, cache, cache, start, 4, row, row)
+        decode_attention(row, cache, cache, start, 4, row, row)
+    with pytest.raises(ValueError, match="share a stride"):
+        decode_attention(torch.zeros((1, 256), device=dev)[:, :128], cache, cache, start, 2,
+                         row, row)
     with pytest.raises(ValueError, match="not a multiple of 8"):
         x = torch.zeros((1, 12), device=dev)
         decode_qkv(x, x[0], None, torch.zeros((36, 12), device=dev))
