@@ -15,6 +15,11 @@
 // by max(l, 1e-30). A fully masked row gets -FLT_MAX on every key, as in the
 // plain version, and so the same uniform average over the row's T keys.
 //
+// K5's f32 path (flash_attention_plain_f32, the counterpart of
+// `_flash_attention_plain` in f32) is the same kernel with neither term and
+// q pre-scaled: the template parameter PRESCALED leaves the scores unscaled,
+// and K4's instantiation keeps the constant 0.125.
+//
 // What bounds it on this card: 4 x T^2 x dh FLOPs per (batch, head), 73.7
 // GFLOP per conformer layer at [8, 16, 1500, 64] (55.2 at HuBERT's [8, 12,
 // 1499, 64]), which must come out f32-accurate: the TPU kernel's dots run at
@@ -75,7 +80,6 @@ constexpr int LDK = DH + 16;      // K row: float4 fragment reads hit distinct b
 constexpr int LDV = DH + 4;       // V row: the scalar fragment reads hit distinct banks
 constexpr int LDQ = DH + 4;       // staged Q row
 constexpr int TILE = BK * (LDK + LDV);  // floats of one K and V buffer
-constexpr float SCALE = 0.125f;   // dh^-0.5, exact
 constexpr unsigned FULL = 0xffffffffu;
 
 static_assert(BQ * LDQ <= TILE, "the Q tile is staged in the second K/V buffer");
@@ -136,6 +140,9 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// PRESCALED: q comes multiplied by dh^-0.5 already (K5's f32 path), and the
+// scores are not scaled again; else they are scaled by 0.125, exactly
+template <bool PRESCALED>
 __global__ void __launch_bounds__(WARPS * 32, 1)
 flash_attention_relkey_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, const float* __restrict__ E,
@@ -290,13 +297,14 @@ flash_attention_relkey_kernel(const float* __restrict__ q, const float* __restri
           }
       }
     }
+    constexpr float scale = PRESCALED ? 1.f : 0.125f;  // dh^-0.5
     const bool ragged = k0 + BK > T;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       const float2 bias = *reinterpret_cast<const float2*>(kb + n * 8 + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float x = s[n][e] * SCALE + ((e & 1) ? bias.y : bias.x);
+        const float x = s[n][e] * scale + ((e & 1) ? bias.y : bias.x);
         s[n][e] = (ragged && k0 + n * 8 + 2 * t + (e & 1) >= T) ? -CUDART_INF_F : x;
       }
     }
@@ -368,6 +376,21 @@ flash_attention_relkey_kernel(const float* __restrict__ q, const float* __restri
   }
 }
 
+template <bool PRESCALED>
+int launch(const float* q, const float* k, const float* v, const float* E, const float* mask,
+           float* out, int BH, int H, int T, int P, int left, void* stream) {
+  const int pos_ld = P > 0 ? (P | 1) : 0;  // odd: the pos stores do not conflict
+  const size_t smem = smem_bytes(pos_ld);
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_relkey_kernel<PRESCALED>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((T + BQ - 1) / BQ, BH);
+  flash_attention_relkey_kernel<PRESCALED>
+      <<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(q, k, v, E, mask, out, H, T, P,
+                                                              left, pos_ld);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, k, v, out [BH, T, 64] f32 (BH = batch x H heads); E [P, 64] f32 with
@@ -377,13 +400,13 @@ extern "C" int flash_attention_relkey_f32(const float* q, const float* k, const 
                                           const float* E, const float* mask, float* out,
                                           int BH, int H, int T, int P, int left,
                                           void* stream) {
-  const int pos_ld = P > 0 ? (P | 1) : 0;  // odd: the pos stores do not conflict
-  const size_t smem = smem_bytes(pos_ld);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_relkey_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + BQ - 1) / BQ, BH);
-  flash_attention_relkey_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, E, mask, out, H, T, P, left, pos_ld);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(q, k, v, E, mask, out, BH, H, T, P, left, stream);
+}
+
+// K5's f32 path (csrc/flash_attention_plain.cu has its bf16 path): the same
+// kernel with no rel term, no mask and q pre-scaled, softmax(q k^T) v.
+// q, k, v, out [BH, T, 64] f32.
+extern "C" int flash_attention_plain_f32(const float* q, const float* k, const float* v,
+                                         float* out, int BH, int T, void* stream) {
+  return launch<true>(q, k, v, nullptr, nullptr, out, BH, 1, T, 0, 0, stream);
 }

@@ -37,6 +37,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: a cudaError_t.
 SIGNATURES = {
     "seanet_front_f32": (_P, _P, _I, _I) + (_P,) * 8,
+    "seanet_front_elu_mismatches": (_P,),
     "lstm_layer_f32": (_P, _P, _P, _P, _I, _I),
     "rvq_encode_f32": (_P,) * 4 + (_I,) * 4,
     "flash_attention_relkey_f32": (_P,) * 6 + (_I,) * 5,

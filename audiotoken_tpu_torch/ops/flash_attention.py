@@ -12,11 +12,12 @@ TPU kernel's multi-pass ``Precision.HIGHEST`` dots do.
 :func:`flash_attention_relkey_plain` is the same function written the
 direct way, with full scores and a gather for the rel term.
 
-K5 (:func:`flash_attention_plain`, ``csrc/flash_attention_plain.cu``) is
-the counterpart of ``_flash_attention_plain``: no bias, no mask, q
-pre-scaled, bf16 or f32. It is a kernel of its own, not K4 without its
-terms, because it also takes bf16: in bf16 it runs on the tensor cores
-(``mma.sync``), in f32 as IEEE FMAs.
+K5 (:func:`flash_attention_plain`) is the counterpart of
+``_flash_attention_plain``: no bias, no mask, q pre-scaled, bf16 or f32.
+In bf16 it is a kernel of its own on the bf16 tensor cores
+(``csrc/flash_attention_plain.cu``); in f32 it is K4's 3xTF32 kernel
+without its terms and without scaling the scores again
+(``flash_attention_plain_f32`` in ``csrc/flash_attention.cu``).
 """
 
 import torch
@@ -106,9 +107,10 @@ def noncausal_attention_plain(q, k, v):
 
 def flash_attention_plain(q, k, v):
     """K5: the function of :func:`noncausal_attention_plain` (non-causal,
-    no bias, no mask, q pre-scaled). Launches the kernel of
-    ``csrc/flash_attention_plain.cu`` for CUDA tensors (bf16 or f32,
-    contiguous, dh = 64) and runs the plain version for CPU tensors.
+    no bias, no mask, q pre-scaled). Launches the bf16 kernel of
+    ``csrc/flash_attention_plain.cu`` or, in f32, K4's kernel of
+    ``csrc/flash_attention.cu`` for CUDA tensors (contiguous, dh = 64) and
+    runs the plain version for CPU tensors.
 
     Counterpart of ``audiotoken_tpu/ops/flash_attention.py:
     _flash_attention_plain`` (Pallas kernels ``_kernel_onepass`` and

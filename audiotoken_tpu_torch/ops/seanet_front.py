@@ -50,3 +50,13 @@ def seanet_front(x, wc, bc, w1, b1, w2, b2, ws, bs):
 
 
 seanet_front.launches = 0
+
+
+def elu_mismatches(device) -> int:
+    """The floats, of all 2^32, on which K1's ELU differs bit for bit from
+    ``v if v > 0 else expm1f(v)`` on a CUDA ``device``: K1 computes expm1f's
+    operations with other instructions (``csrc/seanet_front.cu``)."""
+    device = torch.device(device)
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    _build.launch("seanet_front_elu_mismatches", device, count)
+    return int(count.item())

@@ -6,7 +6,9 @@
   - "default":  the same as "high" on this card (not measured either)
   - "bfloat16": bf16 operands for the plain convolutions (speed)
 
-The hand-written kernels compute in f32 FMAs under every policy.
+The hand-written f32 kernels keep f32 accuracy under every policy: f32
+FMAs, or 3xTF32 split precision on the tensor cores (K1, K3, K4, K5's f32
+path).
 
 cuDNN runs f32 convolutions in TF32 unless told otherwise, which costs
 about three decimal digits and flips late-codebook tokens. A policy

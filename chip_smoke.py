@@ -8,10 +8,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
   2. build the hand-written kernels from ``audiotoken_tpu_torch/csrc``;
   3. each kernel against its plain PyTorch version at the main path's
      shapes, with max-abs differences (K1, K2), code agreement (K3) and
-     both times (CUDA events, warm-up, median of several runs); K2 at B=8
-     and B=32 x 2250 steps, each against its plain version and cuDNN's
-     2-layer ``nn.LSTM`` in the same run, with microseconds a step; K3 at
-     B=8, 1 and 32 x 30 s, with its bounds in 3xTF32 and as f32 FMAs;
+     both times (CUDA events, warm-up, median of several runs); K1 at B=8,
+     1 and 32 x 30 s, with its bound (its three products in 3xTF32, conv_in
+     as FMAs, and its bytes) and every multiply-add as an f32 FMA beside it;
+     K2 at B=8 and B=32 x 2250 steps, each against its plain version and
+     cuDNN's 2-layer ``nn.LSTM`` in the same run, with microseconds a step;
+     K3 at B=8, 1 and 32 x 30 s, with its bounds in 3xTF32 and as f32 FMAs;
   4. the main path through the entry points a user calls: ``AudioToken``
      encode of WAV files (one of 90 s, in 30 s chunks), then
      ``AcousticEncoder`` at 8 and 32 x 30 s of int16 PCM, with real-time
@@ -29,7 +31,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
   5b. the semantic_m golden gate: ``battery_semantic_m.npz`` (4 seeds x 12
      cases) and ``api_semantic_m.npz`` under the semantic_m contract;
   3c. the decode kernels against their plain versions, bf16 and f32: K5
-     (non-causal attention) at [8, 16, 1024, 64], with SDPA beside it, K6
+     (non-causal attention) at [8, 16, 1024, 64], with SDPA beside it (its
+     f32 path is K4's 3xTF32 kernel, with that bound and the FMA bound), K6
      (decode attention) at B=8 and B=32 over a 1024-slot cache at slots
      1023, 640 and 256 (two calls must give the same bits), with SDPA over
      the cache and a mask of the attended slots beside it, and once at B=8
@@ -71,7 +74,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 Every kernel entry carries ``bound_ms``, the least time the card could take
 for the same work: the larger of its operations over the H100's peak for
-their type (67 TFLOP/s f32 FMAs, 989 TFLOP/s bf16; K3's and K4's
+their type (67 TFLOP/s f32 FMAs, 989 TFLOP/s bf16; K1's, K3's and K4's
 f32-accurate products in 3xTF32, three passes at 495 TFLOP/s, with the FMA
 bound beside it as ``bound_f32_ms``) and its bytes (each input read once,
 each output written once) over 3.35 TB/s; ``bound_by`` says which.
@@ -138,7 +141,11 @@ from audiotoken_tpu_torch.ops.flash_attention import (  # noqa: E402
 )
 from audiotoken_tpu_torch.ops.lstm import lstm_layer, lstm_layer_plain  # noqa: E402
 from audiotoken_tpu_torch.ops.rvq import rvq_encode, rvq_encode_plain, rvq_plan  # noqa: E402
-from audiotoken_tpu_torch.ops.seanet_front import seanet_front, seanet_front_plain  # noqa: E402
+from audiotoken_tpu_torch.ops.seanet_front import (  # noqa: E402
+    elu_mismatches,
+    seanet_front,
+    seanet_front_plain,
+)
 from audiotoken_tpu_torch.runtime.precision import get_policy  # noqa: E402
 
 SR = 24_000
@@ -282,6 +289,24 @@ def phase2_build():
             say(f"[2]   {line.strip()}")
 
 
+def _k1_bound(front_w, B, T):
+    """K1's bound at [B, T] (ops/seanet_front.py WEIGHT_SHAPES): the largest of
+    the k3 conv, conv2 and shortcut products in 3xTF32, conv_in's FMAs, and
+    the bytes (x in, [B, 32, T] f32 out, the weights); and, beside it, every
+    multiply-add as an f32 FMA (``bound_f32_ms``). A multiply-add per weight
+    per sample, bias and ELU aside."""
+    wc, _bc, w1, _b1, w2, _b2, ws, _bs = front_w
+    products = 2 * (w1.numel() + w2.numel() + ws.numel()) * B * T
+    conv_in = 2 * wc.numel() * B * T
+    moved = 4 * B * T + 4 * B * 32 * T + nbytes(*front_w)
+    parts = {"operations": max(bound(products, 0, "tf32x3")["bound_ms"],
+                               bound(conv_in, 0, "f32")["bound_ms"]),
+             "bytes": bound(0, moved, "f32")["bound_ms"]}
+    by = max(parts, key=parts.get)
+    return {"bound_ms": parts[by], "bound_by": by,
+            "bound_f32_ms": bound(products + conv_in, moved, "f32")["bound_ms"]}
+
+
 def phase3_kernels(dev):
     """Kernel vs plain version at the main path's shapes (8 x 30 s)."""
     enc = AcousticEncoder(weights="random", seed=0, device=dev)
@@ -296,22 +321,36 @@ def phase3_kernels(dev):
     x = torch.from_numpy(audio).to(dev)
     res = {}
 
-    out = seanet_front(x, *front_w)
-    ref = seanet_front_plain(x, *front_w)
-    err = (out - ref).abs().max().item()
-    del out, ref
-    ms = cuda_ms(lambda: seanet_front(x, *front_w))
-    plain_ms = cuda_ms(lambda: seanet_front_plain(x, *front_w))
-    say(f"[3] K1 seanet_front [8, 720000]: max|kernel-plain| {err:.3e}  "
-        f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
-    if not err <= KERNEL_ATOL:
-        raise AssertionError(f"K1 differs from its plain version by {err}")
-    # a multiply-add per weight per sample (the four convs), bias and ELU aside
-    macs = sum(w.numel() for w in front_w[0::2])
-    B, T = x.shape
-    res["seanet_front"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                               **bound(2 * macs * B * T, nbytes(x, *front_w) + 4 * B * 32 * T,
-                                       "f32"))
+    # K1's ELU is expm1f's arithmetic on other instructions: the same bits
+    elu_bad = elu_mismatches(dev)
+    say(f"[3] K1's ELU against expm1f, bit for bit on all 2^32 floats: {elu_bad} differ")
+    if elu_bad:
+        raise AssertionError(f"K1's ELU differs from expm1f on {elu_bad} floats")
+    # K1 at B=8 (the main path's shape, which the kernels line reports), then
+    # B=1 and B=32 (the B=8 rows four times over)
+    for B, xb in ((8, x), (1, x[:1]), (32, x.repeat(4, 1))):
+        out = seanet_front(xb, *front_w)
+        ref = seanet_front_plain(xb, *front_w)
+        err = (out - ref).abs().max().item()
+        del out, ref
+        ms = cuda_ms(lambda: seanet_front(xb, *front_w), reps=9)
+        plain_ms = cuda_ms(lambda: seanet_front_plain(xb, *front_w))
+        b = _k1_bound(front_w, B, xb.shape[1])
+        say(f"[3] K1 seanet_front [{B}, 720000]: max|kernel-plain| {err:.3e}  kernel {ms:.3f} ms"
+            f"  plain {plain_ms:.3f} ms  bound {b['bound_ms']:.4f} ms ({b['bound_by']}; "
+            f"products in 3xTF32, conv_in as FMAs), {b['bound_f32_ms']:.4f} ms as f32 FMAs")
+        if not err <= KERNEL_ATOL:
+            raise AssertionError(f"K1 differs from its plain version by {err} at B={B}")
+        if B == 8:
+            res["seanet_front"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                       library_ms=None, elu_mismatches=elu_bad, **b)
+        else:
+            r = res["seanet_front"]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r.update({f"ms_b{B}": ms, f"plain_ms_b{B}": plain_ms,
+                      f"bound_ms_b{B}": b["bound_ms"], f"bound_f32_ms_b{B}": b["bound_f32_ms"]})
+        del xb
+    torch.cuda.empty_cache()
 
     # K2: both layers of the encoder's LSTM at T'=2250, H=512, at B=8 (the
     # main path's shape, which the kernels line reports) and B=32 (one row
@@ -650,6 +689,11 @@ def phase3c_decode_kernels(dev):
         if dt == torch.bfloat16 and B == 8:  # the semantic decode main path's shape
             r.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                      **bound(flops, moved, "bf16"))
+        elif name == "flash_attention_plain":  # K5's f32 path, on K4's 3xTF32 kernel
+            r["f32"] = dict(source="audiotoken_tpu_torch/csrc/flash_attention.cu", ms=ms,
+                            plain_ms=plain_ms, library_ms=library_ms,
+                            **bound(flops, moved, "tf32x3"),
+                            bound_f32_ms=bound(flops, moved, "f32")["bound_ms"])
 
     for dt in (torch.bfloat16, torch.float32):
         q = _randn(dev, (8, 16, 1024, 64), dt, 1, 0.125)
@@ -659,10 +703,16 @@ def phase3c_decode_kernels(dev):
         ms = device_ms(lambda: flash_attention_plain(q, k, v))
         plain_ms = device_ms(lambda: noncausal_attention_plain(q, k, v))
         library_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
+        flops = 4 * 1024 * 1024 * 64 * 8 * 16
+        kind = "bf16" if dt == torch.bfloat16 else "tf32x3"  # f32: K4's 3xTF32 kernel
+        b = bound(flops, 4 * nbytes(q), kind)
+        fma = (f", {bound(flops, 0, 'f32')['bound_ms']:.3f} ms as f32 FMAs"
+               if kind == "tf32x3" else "")
         say(f"[3c] K5 flash_attention_plain [8, 16, 1024, 64] {dt}: max|kernel-plain| "
-            f"{err:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  SDPA {library_ms:.3f} ms")
-        record("flash_attention_plain", dt, 8, err, ms, plain_ms,
-               4 * 1024 * 1024 * 64 * 8 * 16, 4 * nbytes(q), library_ms)
+            f"{err:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  SDPA {library_ms:.3f} ms  "
+            f"bound {b['bound_ms']:.4f} ms ({kind}, {b['bound_by']}){fma}")
+        record("flash_attention_plain", dt, 8, err, ms, plain_ms, flops, 4 * nbytes(q),
+               library_ms)
         del q, k, v
 
         for B in (8, 32):

@@ -20,6 +20,7 @@ from audiotoken_tpu_torch.ops.flash_attention import (
     flash_attention_relkey,
     flash_attention_relkey_plain,
 )
+from torch_tf32 import tf32
 
 ATOL = 2e-5
 LEFT, RIGHT, DH = 64, 8, 64
@@ -118,20 +119,13 @@ def test_plain_refuses_wrong_embedding_rows():
         flash_attention_relkey_plain(*map(torch.from_numpy, (q, k, v, E[:10])), None, LEFT, RIGHT)
 
 
-def _tf32(x):
-    """x (f32) rounded to TF32, 10 mantissa bits, to nearest with ties away
-    from zero: what cvt.rna.tf32.f32 gives, by integer ops on the bits."""
-    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
-    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
 def _split_product(a, b, terms):
     """a @ b as K4's tensor cores take it: each operand split into hi =
     tf32(x) and lo = tf32(x - hi), the sum of the ``terms`` (3: lo hi + hi lo
     + hi hi; 1: hi hi alone) taken exactly (f64) and rounded to the f32
     accumulator."""
-    a_hi, b_hi = _tf32(a), _tf32(b)
-    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    a_hi, b_hi = tf32(a), tf32(b)
+    a_lo, b_lo = tf32(a - a_hi), tf32(b - b_hi)
     f = lambda x: x.astype(np.float64)  # noqa: E731
     out = f(a_hi) @ f(b_hi)
     if terms == 3:

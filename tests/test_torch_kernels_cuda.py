@@ -51,18 +51,23 @@ def _front_weights(dev, seed=0):
     return [w.to(dev) for w in enc.front_weights()]
 
 
-@pytest.mark.parametrize("T", [1, 5, 320, 4096 + 123, 30000])
-def test_seanet_front_matches_plain(dev, T):
+@pytest.mark.parametrize("T", [1, 5, 7, 255, 256, 257, 320, 4096 + 123, 30000, 30001])
+@pytest.mark.parametrize("B", [1, 3, 33])
+def test_seanet_front_matches_plain(dev, B, T):
+    """Rows of every length class (one sample, shorter than the pads, around
+    a 256-sample tile's edge, odd); the persistent kernel's work items are
+    never a multiple of its grid here."""
     w = _front_weights(dev)
     x = torch.from_numpy(
-        (np.random.default_rng(T).standard_normal((3, T)) * 0.3).astype(np.float32)
+        (np.random.default_rng(B * 100_003 + T).standard_normal((B, T)) * 0.3)
+        .astype(np.float32)
     ).to(dev)
     before = seanet_front.launches
     out = seanet_front(x, *w)
     torch.cuda.synchronize()
     assert seanet_front.launches == before + 1
     ref = seanet_front_plain(x, *w)
-    assert out.shape == ref.shape == (3, 32, T)
+    assert out.shape == ref.shape == (B, 32, T)
     assert torch.allclose(out, ref, atol=ATOL, rtol=0), (out - ref).abs().max().item()
 
 
@@ -79,6 +84,20 @@ def test_seanet_front_takes_unaligned_rows(dev):
     torch.cuda.synchronize()
     ref = seanet_front_plain(x, *w)
     assert torch.allclose(out, ref, atol=ATOL, rtol=0), (out - ref).abs().max().item()
+
+
+def test_seanet_front_elu_is_expm1f(dev):
+    from audiotoken_tpu_torch.ops.seanet_front import elu_mismatches
+
+    assert elu_mismatches(dev) == 0
+
+
+def test_seanet_front_two_calls_bitwise_equal(dev):
+    w = _front_weights(dev)
+    x = torch.from_numpy(
+        (np.random.default_rng(5).standard_normal((8, 240_001)) * 0.3).astype(np.float32)
+    ).to(dev)
+    assert torch.equal(seanet_front(x, *w), seanet_front(x, *w))
 
 
 def _lstm_inputs(dev, B, T, H=512):
@@ -298,9 +317,11 @@ def _randn(dev, shape, dtype, seed, scale=1.0):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("B,T", [(1, 1024), (8, 1024), (32, 512), (2, 77), (2, 1000),
-                                 (2, 1280)])
+@pytest.mark.parametrize("B,T", [(1, 1024), (8, 1024), (32, 512), (2, 1), (2, 63), (2, 77),
+                                 (2, 1000), (2, 1280), (2, 1500)])
 def test_flash_attention_plain_matches_plain(dev, B, T, dt):
+    """In f32 K5 is K4's 3xTF32 kernel with q pre-scaled: the launch counts
+    as K5's, not K4's."""
     from audiotoken_tpu_torch.ops.flash_attention import (
         flash_attention_plain,
         noncausal_attention_plain,
@@ -310,10 +331,11 @@ def test_flash_attention_plain_matches_plain(dev, B, T, dt):
     q = _randn(dev, (B, 16, T, 64), dtype, 1, 0.125)
     k = _randn(dev, (B, 16, T, 64), dtype, 2)
     v = _randn(dev, (B, 16, T, 64), dtype, 3)
-    before = flash_attention_plain.launches
+    before, before_k4 = flash_attention_plain.launches, flash_attention_relkey.launches
     out = flash_attention_plain(q, k, v)
     torch.cuda.synchronize()
     assert flash_attention_plain.launches == before + 1
+    assert flash_attention_relkey.launches == before_k4
     _assert_kernel_close(out, noncausal_attention_plain(q, k, v), "K5", dt)
 
 

@@ -19,6 +19,7 @@ from audiotoken_tpu_torch.ops.rvq import rvq_encode, rvq_encode_plain, rvq_plan
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 import verify_tpu_parity as parity  # noqa: E402
 from golden_cases import battery  # noqa: E402
+from torch_tf32 import tf32  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -69,21 +70,14 @@ def test_bandwidth_ladder(bandwidth):
 # --- K3's precision: its 3xTF32 distances, emulated -------------------------
 
 
-def _tf32(x):
-    """x (f32) rounded to TF32, 10 mantissa bits, to nearest with ties away
-    from zero: cvt.rna.tf32.f32, and the kernel's integer form of it."""
-    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
-    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
 def _xe_tf32(r, e, terms):
     """r @ e.T as csrc/rvq.cu takes it on the tensor cores: both operands
     split into hi = tf32(x) and lo = tf32(x - hi); per k-step of 8 dims the
     terms lo_e hi_r, hi_e lo_r, hi_e hi_r (``terms`` 3) or hi_e hi_r alone
     (1), each one mma: its 8 products summed exactly and added to the f32
     accumulator with one rounding."""
-    r_hi, e_hi = _tf32(r), _tf32(e)
-    r_lo, e_lo = _tf32(r - r_hi), _tf32(e - e_hi)
+    r_hi, e_hi = tf32(r), tf32(e)
+    r_lo, e_lo = tf32(r - r_hi), tf32(e - e_hi)
     pairs = [(e_lo, r_hi), (e_hi, r_lo), (e_hi, r_hi)] if terms == 3 else [(e_hi, r_hi)]
     acc = np.zeros((r.shape[0], e.shape[0]), np.float32)
     for k0 in range(0, r.shape[1], 8):
