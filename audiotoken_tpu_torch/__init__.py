@@ -10,7 +10,10 @@ semantic_m encode (fbank + w2v-BERT conformer + VQ), through
 ``AudioToken(Tokenizers.semantic_m, ...).encode`` and
 ``Wav2VecBertEncoder``; acoustic decode (``AcousticDecoder``) and semantic
 decode (GPT -> Bark-fine -> EnCodec decoder, ``Wav2VecBertDecoder`` and
-``HubertDecoder``), through ``AudioToken.decode`` / ``decode_batch``.
+``HubertDecoder``), through ``AudioToken.decode`` / ``decode_batch``; and
+the corpus path, ``AudioToken.encode_batch_files`` (``runtime/executor.py``),
+with bytes input, tar and zip corpora, the native libav decoder and the
+CLI (``python -m audiotoken_tpu_torch.cli``).
 
 Imports ``torch`` and ``numpy``, never JAX. The device is explicit: the
 default is CUDA, and ``device="cpu"`` runs every kernel's plain PyTorch
@@ -19,7 +22,7 @@ at first use on a CUDA tensor (``ops/_build.py``).
 """
 
 from .api import AudioToken
-from .configs import Tokenizers
+from .configs import AUDIO_EXTS, TAR_EXTS, ZIP_EXTS, Tokenizers
 from .decoders import AcousticDecoder, HubertDecoder, Wav2VecBertDecoder
 from .encoders import AcousticEncoder, HubertEncoder, Wav2VecBertEncoder
 from .io.audio import read_audio
@@ -36,5 +39,8 @@ __all__ = [
     "Wav2VecBertDecoder",
     "Wav2VecBertEncoder",
     "read_audio",
+    "AUDIO_EXTS",
+    "TAR_EXTS",
+    "ZIP_EXTS",
     "__version__",
 ]

@@ -3,15 +3,15 @@ semantic_m.
 
 Counterpart of ``audiotoken_tpu/api.py:AudioToken``: same constructor
 arguments (plus an explicit torch ``device``, default CUDA), the same
-``encode`` surface, returning numpy int16 tokens [1, K, T] (K = 1 for the
-semantic tokenizers), and ``decode`` / ``decode_batch`` back to waveforms.
-What later slices of the port bring raises ``NotImplementedError`` until
-then.
+``encode`` surface (an array, a path, or the bytes of an audio file),
+returning numpy int16 tokens [1, K, T] (K = 1 for the semantic
+tokenizers), ``encode_batch_files`` for a corpus, and ``decode`` /
+``decode_batch`` back to waveforms.
 """
 
 import os
 from pathlib import Path
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import numpy as np
 
@@ -31,7 +31,7 @@ _ENCODERS = {
     Tokenizers.semantic_m: Wav2VecBertEncoder,
 }
 
-ArrayLike = Union[np.ndarray, "os.PathLike[str]", Path, str]
+ArrayLike = Union[np.ndarray, "os.PathLike[str]", Path, str, bytes]
 
 
 class AudioToken:
@@ -96,19 +96,22 @@ class AudioToken:
         chunk_size: Optional[float] = None,
         overlap: float = 0.0,
     ) -> np.ndarray:
-        """Encode one audio (array [1, T] at the model rate, or a WAV path)
-        to tokens [1, K, T] int16.
+        """Encode one audio (array [1, T] at the model rate, a path, or the
+        bytes of an audio file in any container the native libav decoder
+        reads) to tokens [1, K, T] int16.
 
         With ``chunk_size`` (seconds) a file is encoded chunk by chunk;
         ``overlap`` (seconds, rounded to whole token hops) prepends that much
         left context to every chunk and discards its tokens.
         """
-        if isinstance(audio, (bytes, bytearray)):
-            raise NotImplementedError(
-                "encoding bytes needs the native libav decoder, which comes "
-                "with the facade slice of the port"
-            )
         self.load_encoder()
+        if isinstance(audio, (bytes, bytearray)):
+            from .io._native import NativeDecoder
+            from .io.audio import convert_audio
+
+            with NativeDecoder(bytes(audio)) as dec:
+                wav, sr = dec.read_all(), dec.sample_rate
+            return self._encode_single(convert_audio(wav, sr, self.model_sample_rate))
         if isinstance(audio, np.ndarray):
             if audio.ndim != 2 or audio.shape[0] != 1:
                 raise ValueError(f"audio must be [1, T] mono, got {audio.shape}")
@@ -141,9 +144,33 @@ class AudioToken:
         # all-valid input, passed as full lengths
         return self.encoder(audio, np.full(audio.shape[0], audio.shape[-1], np.int32))
 
-    def encode_batch_files(self, *args, **kwargs):
-        raise NotImplementedError(
-            "encode_batch_files: the corpus executor comes with the facade slice of the port"
+    def encode_batch_files(
+        self,
+        batch_size: int,
+        outdir: Union[str, os.PathLike],
+        chunk_size: float = 30,
+        num_workers: int = 4,
+        audio_files: Optional[List[Union[str, os.PathLike]]] = None,
+        audio_dir: Optional[Union[str, os.PathLike]] = None,
+        **kwargs,
+    ) -> dict:
+        """Tokenize a corpus: files -> fixed-shape batches of ``chunk_size``
+        s segments -> the device -> one ``.npy`` per file in ``outdir``,
+        idempotent across reruns (``runtime/executor.py``). Returns the
+        summary dict (RTFx, batches, stage spans)."""
+        self.load_encoder()
+        from .runtime.executor import encode_batch_files
+
+        return encode_batch_files(
+            encoder=self.encoder,
+            model_config=self.model_config,
+            batch_size=batch_size,
+            outdir=outdir,
+            chunk_size=chunk_size,
+            num_workers=num_workers,
+            audio_files=audio_files,
+            audio_dir=audio_dir,
+            **kwargs,
         )
 
     def load_decoder(self, **kwargs):

@@ -2,12 +2,19 @@
 joint vocabulary of the semantic -> acoustic GPT.
 
 Counterpart of ``audiotoken_tpu/configs.py`` for the ported paths:
-acoustic, semantic_s and semantic_m encode, acoustic and semantic decode.
+acoustic, semantic_s and semantic_m encode, acoustic and semantic decode,
+and the corpus path (the file extensions it reads, and ``AudioConfig``,
+the metadata of one chunk).
 """
 
 from dataclasses import dataclass, field
 from enum import Enum
+from math import ceil
 from typing import Dict, Optional, Tuple
+
+AUDIO_EXTS: Tuple[str, ...] = (".mp3", ".flac", ".wav", ".ogg", ".opus")
+TAR_EXTS: Tuple[str, ...] = (".tar", ".tar.gz", ".tgz", ".tar.bz2", ".tbz", ".tar.xz", ".txz")
+ZIP_EXTS: Tuple[str, ...] = (".zip", ".ZIP")
 
 
 class COMMONS(str, Enum):
@@ -143,6 +150,42 @@ Wav2VecBertDecoderConfig = SemanticDecoderConfig(
     model_artifacts=((COMMONS.HI, "gpt_semantic_m_hi"),),
     max_source_tokens=250,
 )
+
+
+@dataclass
+class AudioConfig:
+    """Metadata for one audio file or one chunk of it.
+
+    ``length_tokens`` = ceil(length_seconds * model_token_rate).
+    """
+
+    file_name: str
+    start_idx: Optional[int] = None
+    end_idx: Optional[int] = None
+    length_seconds: Optional[float] = None
+    length_samples: Optional[int] = None
+    model_token_rate: Optional[int] = None
+
+    @property
+    def length_tokens(self) -> int:
+        if self.model_token_rate is None or self.length_seconds is None:
+            raise ValueError("model_token_rate and length_seconds are required")
+        return ceil(self.length_seconds * self.model_token_rate)
+
+    @property
+    def chunk_length_tokens(self) -> int:
+        """Token count of THIS chunk (start_idx..end_idx), which the token
+        sink trims each chunk to; the whole file's ``length_tokens`` would
+        be wrong for every chunk but a file's only one."""
+        if self.model_token_rate is None:
+            raise ValueError("model_token_rate is required")
+        if self.start_idx is None or self.end_idx is None:
+            return self.length_tokens
+        if not self.length_samples or not self.length_seconds:
+            raise ValueError("length_samples and length_seconds are required")
+        sr = self.length_samples / self.length_seconds
+        seconds = (self.end_idx - self.start_idx) / sr
+        return ceil(seconds * self.model_token_rate)
 
 
 # Bandwidth (kbps) <-> codebook ladder of EnCodec 24 kHz.

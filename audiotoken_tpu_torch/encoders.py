@@ -4,6 +4,13 @@ Counterpart of ``audiotoken_tpu/encoders.py``: ``AcousticEncoder`` gives
 numpy int16 codes [B, K, T] at 75 frames per second, ``HubertEncoder``
 (semantic_s) and ``Wav2VecBertEncoder`` (semantic_m) int16 ids [B, 1, T]
 at 50 per second.
+
+Each encoder's ``dispatch`` queues the work on the device and returns the
+device tensor without waiting for it (no copy back, no synchronisation):
+the corpus executor (``runtime/executor.py``) overlaps the next batch's
+host work with it. ``accepts_int16`` tells the executor that raw PCM16
+may be sent; ``int16_device_transform`` that the host transform has a
+device equivalent for int16 input.
 """
 
 import math
@@ -91,6 +98,18 @@ def _expand_mask(mask: torch.Tensor, T: int) -> torch.Tensor:
     return mask
 
 
+def _h2d(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without waiting for the device. On a CUDA
+    device the array is staged in pinned memory and copied asynchronously,
+    behind the work already queued on the stream, so the host goes on to
+    queue the next batch (a copy from pageable memory would wait for the
+    device first). The pinned block is not reused before the copy is done."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def _to_device(encoder, input_batch, attention_mask, who: str):
     """Host side of the semantic encoders: the batch as f32 or int16 PCM,
     its length checked against ``encoder._min_samples``, padded to a
@@ -105,9 +124,7 @@ def _to_device(encoder, input_batch, attention_mask, who: str):
     mask = _mask_to_lengths(attention_mask, audio.shape)
     if mask.ndim == 2:
         mask = np.pad(mask, ((0, 0), (0, padded.shape[-1] - mask.shape[-1])))
-    x = torch.from_numpy(np.ascontiguousarray(padded)).to(encoder.device)
-    m = torch.from_numpy(np.ascontiguousarray(mask)).to(encoder.device)
-    return x, m, n
+    return _h2d(padded, encoder.device), _h2d(mask, encoder.device), n
 
 
 class AcousticEncoder:
@@ -115,6 +132,8 @@ class AcousticEncoder:
 
     Takes float32 or raw int16 PCM; int16 is scaled by the exact 1/2^15 on
     the device."""
+
+    accepts_int16 = True
 
     def __init__(
         self,
@@ -151,20 +170,27 @@ class AcousticEncoder:
             z = self.seanet(audio.to(self.policy.compute_dtype))
             return self.quantizer(z).to(torch.int16)
 
-    def __call__(self, input_batch: np.ndarray, attention_mask=None) -> np.ndarray:
-        """[B, T] float32 (or int16 PCM) -> [B, num_q, ceil(T/hop)] int16.
+    def dispatch(self, input_batch: np.ndarray, attention_mask=None):
+        """Encode without waiting for the device -> (device codes
+        [B, num_q, T_bucket] int16, n_frames): the first ``n_frames`` are
+        the input's, the rest the bucket padding's.
 
-        ``attention_mask`` is accepted for the JAX encoders' common signature
-        and not used: the path is causal."""
+        ``attention_mask`` is accepted for the encoders' common signature
+        and not used: the path is causal, so a row's codes over its valid
+        prefix do not depend on what follows it."""
         audio = np.asarray(input_batch)
         if audio.dtype != np.int16:
             audio = audio.astype(np.float32)
         n = audio.shape[-1]
         _require_min_samples(n, 1, self.config.model_sample_rate, "AcousticEncoder")
         padded = pad_to_bucket(audio, self.buckets, self.config.pad_token or 0)
-        x = torch.from_numpy(np.ascontiguousarray(padded)).to(self.device)
-        codes = _run_subbatched(self._forward, self.max_device_batch, x)
-        return codes[:, :, : math.ceil(n / self.hop)].cpu().numpy()
+        x = _h2d(padded, self.device)
+        return _run_subbatched(self._forward, self.max_device_batch, x), math.ceil(n / self.hop)
+
+    def __call__(self, input_batch: np.ndarray, attention_mask=None) -> np.ndarray:
+        """[B, T] float32 (or int16 PCM) -> [B, num_q, ceil(T/hop)] int16."""
+        codes, n_frames = self.dispatch(input_batch, attention_mask)
+        return codes[:, :, :n_frames].cpu().numpy()
 
 
 class HubertEncoder:
@@ -181,6 +207,9 @@ class HubertEncoder:
     None takes ``HubertConfig``'s default, the faster of the two on the
     H100 (PERF.md).
     """
+
+    accepts_int16 = True
+    int16_device_transform = True  # the masked per-row normalisation of _forward
 
     @staticmethod
     def host_transform(waveform: np.ndarray) -> np.ndarray:
@@ -283,6 +312,8 @@ class Wav2VecBertEncoder:
     device the attention of every block is kernel K4; on the CPU it is K4's
     plain version.
     """
+
+    accepts_int16 = True
 
     def __init__(
         self,

@@ -5,8 +5,8 @@ calls (its utils.py) for the WAV container; a copy of
 ``audiotoken_tpu/io/wavfile.py``.
 Sample normalization matches torchaudio's ``normalize=True``:
 int16/2^15, int32/2^31, uint8 (x-128)/2^7, 24-bit /2^23, float passthrough.
-Compressed containers (flac/mp3/ogg/opus) need the native libav decoder,
-which the port does not have yet.
+Compressed containers (flac/mp3/ogg/opus) go through the native libav
+decoder (``io/_native.py``) instead.
 """
 
 import struct

@@ -70,7 +70,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
      ``"flash"`` forward;
   5d. the semantic_s golden gate: ``battery_semantic_s.npz`` (4 seeds x 12
      cases, host-normalised over each row's valid prefix) and
-     ``api_semantic_s.npz``.
+     ``api_semantic_s.npz``;
+  4e. the corpus path on the card: a corpus made from ``--seed`` (about 30
+     minutes of 24 kHz PCM16 in 48 files of 5-95 s, two 44.1 kHz stereo
+     files and a tar of three members) through
+     ``AudioToken(Tokenizers.acoustic).encode_batch_files`` at B=8 and 32:
+     every file written once, with tokens equal to ``AudioToken.encode(path,
+     chunk_size=30)``, a rerun that writes nothing, the corpus RTFx beside
+     phase 4's device RTFx, the executor's stage spans and the device's busy
+     share of the wall (CUDA events around each dispatch; and once under
+     ``torch.profiler``); then the same corpus at 16 kHz through
+     ``AudioToken(Tokenizers.semantic_s)`` at B=8 on the int16
+     passthrough, ids equal to the encoder's synchronous ``dispatch`` of the
+     same batches; K1-K4 must launch during the phase;
+  5e. the four ``_i16`` rows of the acoustic battery, each written as a
+     PCM16 WAV cut to its own length, through ``encode_batch_files`` for
+     every weight seed, against ``battery_acoustic.npz`` under the per-case
+     acoustic contract.
 
 Every kernel entry carries ``bound_ms``, the least time the card could take
 for the same work: the larger of its operations over the H100's peak for
@@ -85,6 +101,7 @@ The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
+import argparse
 import itertools
 import json
 import os
@@ -102,6 +119,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "scripts"))
 
 import profile_attn_micro_torch as micro  # noqa: E402
+import profile_corpus_torch as corpus  # noqa: E402
 from profile_hubert_torch import _union_s  # noqa: E402
 import verify_tpu_parity as parity  # noqa: E402  (numpy-only at import)
 from golden_cases import WEIGHT_SEEDS, api_clips, battery  # noqa: E402
@@ -114,6 +132,7 @@ from audiotoken_tpu_torch.encoders import (  # noqa: E402
     HubertEncoder,
     Wav2VecBertEncoder,
 )
+from audiotoken_tpu_torch.io import _native  # noqa: E402
 from audiotoken_tpu_torch.io.wavfile import write_wav  # noqa: E402
 from audiotoken_tpu_torch.nn.hubert import feature_lengths  # noqa: E402
 from audiotoken_tpu_torch.ops import _build  # noqa: E402
@@ -146,6 +165,7 @@ from audiotoken_tpu_torch.ops.seanet_front import (  # noqa: E402
     seanet_front,
     seanet_front_plain,
 )
+from audiotoken_tpu_torch.runtime import executor  # noqa: E402
 from audiotoken_tpu_torch.runtime.precision import get_policy  # noqa: E402
 
 SR = 24_000
@@ -287,6 +307,10 @@ def phase2_build():
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "build seconds" in line:
             say(f"[2]   {line.strip()}")
+    # the host's libav decoder, for non-WAV input; no phase depends on it
+    built = _native.native_available()
+    say(f"[2] native libav decoder: {'built' if built else 'NOT built'} "
+        f"({_native.library_path() if built else _native.build_log_path()})")
 
 
 def _k1_bound(front_w, B, T):
@@ -444,7 +468,8 @@ def _check_codes(codes, shape):
 
 
 def phase4_main_path(dev, tmp):
-    """The user-facing entry points; returns each kernel's launch count."""
+    """The user-facing entry points; returns each kernel's launch count and
+    the encoder's device RTFx at B=8 and 32."""
     rng = np.random.default_rng(7)
     clip90 = (0.2 * rng.standard_normal(90 * SR)).astype(np.float32)
     clip7 = (0.2 * rng.standard_normal(7 * SR + 123)).astype(np.float32)
@@ -462,6 +487,7 @@ def phase4_main_path(dev, tmp):
     _check_codes(toks, (1, 16, -(-(7 * SR + 123) // 320)))
     toks = at.encode(os.path.join(tmp, "clip90.wav"), chunk_size=30)
     _check_codes(toks, (1, 16, 6750))
+    rtfx = {}
     for B in (8, 32):
         walls = []
         for _ in range(3):
@@ -472,15 +498,16 @@ def phase4_main_path(dev, tmp):
             walls.append(time.perf_counter() - t0)
             _check_codes(codes, (B, 16, 2250))
         wall = statistics.median(walls)
+        rtfx[B] = B * 30.0 / wall
         say(f"[4] AcousticEncoder B={B} x 30 s int16: median wall {wall * 1e3:.1f} ms "
-            f"(runs {', '.join(f'{w * 1e3:.1f}' for w in walls)}), RTFx {B * 30.0 / wall:.1f}")
+            f"(runs {', '.join(f'{w * 1e3:.1f}' for w in walls)}), RTFx {rtfx[B]:.1f}")
     say(f"[4] AcousticEncoder B=8 profiled: {device_split(lambda: enc(pcm30[:8]))}")
     counts = {k.__name__: k.launches for k in ACOUSTIC_KERNELS}
     say(f"[4] kernel launches during the main path: {counts}")
     for name, n in counts.items():
         if n < 1:
             raise AssertionError(f"kernel {name} was not launched by the main path")
-    return counts
+    return counts, rtfx
 
 
 def phase5_goldens(dev, tmp):
@@ -1104,8 +1131,9 @@ def phase3e_flash_norel(dev):
 
 
 def phase4d_semantic_s(dev, tmp):
-    """The semantic_s entry points; returns K4's launch count and the
-    facade (its seed-0 encoder is reused by phase 5d)."""
+    """The semantic_s entry points; returns K4's launch count, the facade
+    (its seed-0 encoder is reused by phase 5d) and the default form's
+    device RTFx at B=8."""
     rng = np.random.default_rng(10)
     clip90 = (0.2 * rng.standard_normal(90 * SR_M)).astype(np.float32)
     clip7 = (0.2 * rng.standard_normal(7 * SR_M + 123)).astype(np.float32)
@@ -1157,7 +1185,7 @@ def phase4d_semantic_s(dev, tmp):
     if n != HUBERT_LAYERS * flash_forwards or n < 1:
         raise AssertionError(f"K4 launched {n} times, expected {HUBERT_LAYERS} x {flash_forwards}")
     del encs
-    return n, at
+    return n, at, 8 * 30.0 / walls[default, 8]
 
 
 def _hubert_host_norm(audio, lengths):
@@ -1207,8 +1235,161 @@ def phase5d_semantic_s_goldens(dev, tmp, at):
     if failures:
         raise AssertionError("semantic_s golden gate failed: " + "; ".join(failures))
 
+class _SynchronousEncoder:
+    """``enc`` whose ``dispatch`` waits for the device and returns host ids."""
+
+    def __init__(self, enc):
+        self.enc, self.device = enc, enc.device
+        self.host_transform = enc.host_transform
+        self.accepts_int16 = enc.accepts_int16
+        self.int16_device_transform = enc.int16_device_transform
+
+    def dispatch(self, audio, lengths):
+        ids, n_frames = self.enc.dispatch(audio, lengths)
+        torch.cuda.synchronize()
+        return ids.cpu(), n_frames
+
+
+def _npy_files(out):
+    return sorted(f for f in os.listdir(out) if f.endswith(".npy"))
+
+
+def _check_corpus_output(tag, out, expected, ref, archives=0):
+    """Every expected file written once, of the expected token count, equal
+    to ``ref`` bit for bit; the manifest holds each file, and each of the
+    ``archives`` tars, once."""
+    if _npy_files(out) != sorted(expected):
+        raise AssertionError(f"{tag}: wrote {_npy_files(out)}, expected {sorted(expected)}")
+    with open(os.path.join(out, "manifest.json")) as f:
+        manifest = json.load(f)["completed"]
+    if len(manifest) != len(set(manifest)) or len(manifest) != len(expected) + archives:
+        raise AssertionError(f"{tag}: manifest of {len(manifest)} entries for "
+                             f"{len(expected)} files and {archives} archives")
+    bad = []
+    for name, frames in expected.items():
+        tok = np.load(os.path.join(out, name))
+        # a last chunk under 0.2 s is dropped by the corpus path, not by
+        # encode(path): its tokens are the reference's tail past ``frames``
+        want = ref[name][:, :frames]
+        if tok.shape[1:] != (frames,) or tok.dtype != np.int16:
+            bad.append(f"{name} {tok.shape} {tok.dtype}, expected [K, {frames}] int16")
+        elif want.shape != tok.shape or not np.array_equal(tok, want):
+            agree = float((tok == want).mean()) if want.shape == tok.shape else 0.0
+            bad.append(f"{name} agreement {agree:.6f} ({want.shape} reference)")
+    if bad:
+        raise AssertionError(f"{tag}: " + "; ".join(bad))
+
+
+def _rerun_writes_nothing(tag, at, B, out, audio_dir):
+    mtimes = {f: os.path.getmtime(os.path.join(out, f)) for f in _npy_files(out)}
+    summary = at.encode_batch_files(batch_size=B, outdir=out, chunk_size=30, audio_dir=audio_dir)
+    if summary["batches"] != 0 or mtimes != {f: os.path.getmtime(os.path.join(out, f))
+                                             for f in _npy_files(out)}:
+        raise AssertionError(f"{tag}: the rerun wrote {summary['batches']} batches")
+
+
+def _corpus_run(tag, at, B, out, audio_dir, device_rtfx, num_workers=4):
+    summary, wall, busy, gaps = corpus.corpus_run(at, B, out, audio_dir, num_workers)
+    if "failed_files" in summary:
+        raise AssertionError(f"{tag}: failed files {summary['failed_files']}")
+    lines, _nums = corpus.report(tag, summary, wall, busy, gaps, device_rtfx, B)
+    for line in lines:
+        say(f"[4e] {line}")
+
+
+def phase4e_corpus(dev, tmp, seed, device_rtfx):
+    """The corpus path on the card: acoustic at B=8 and 32, then semantic_s
+    at B=8. ``device_rtfx`` holds phase 4's AcousticEncoder RTFx by batch
+    and, under "semantic_s", phase 4d's HubertEncoder RTFx at B=8."""
+    t0 = time.perf_counter()
+    c = corpus.make_corpus(seed, tmp)
+    say(f"[4e] corpus (seed {seed}): {len(c['sources'])} files, {c['seconds']:.1f} s of audio "
+        f"({c['seconds'] / 60:.1f} min), written at 24 and 16 kHz in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    at = AudioToken(Tokenizers.acoustic, num_codebooks=16, weights="random", device=dev)
+    at.load_encoder()
+    t0 = time.perf_counter()
+    ref = {name: at.encode(path, chunk_size=30)[0] for name, path in c["sources"].items()}
+    say(f"[4e] reference: AudioToken.encode(path, chunk_size=30) of every file in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches = {}
+    for B in (8, 32):
+        out = os.path.join(tmp, f"corpus_tokens_b{B}")
+        reset_counts()
+        _corpus_run(f"acoustic B={B}", at, B, out, c["dir"], device_rtfx[B])
+        for kern in ACOUSTIC_KERNELS:
+            launches[kern.__name__] = launches.get(kern.__name__, 0) + kern.launches
+        _check_corpus_output(f"acoustic B={B}", out, c["frames"], ref, archives=1)
+        _rerun_writes_nothing(f"acoustic B={B}", at, B, out, c["dir"])
+    say("[4e] acoustic B=8 profiled: " + device_split(lambda: at.encode_batch_files(
+        batch_size=8, outdir=os.path.join(tmp, "corpus_tokens_prof"), chunk_size=30,
+        audio_dir=c["dir"])))
+    say("[4e] every file written once, token counts right, tokens equal to "
+        "AudioToken.encode(path, chunk_size=30) at both batches; the reruns wrote nothing")
+    del at, ref
+    torch.cuda.empty_cache()
+
+    sem = AudioToken(Tokenizers.semantic_s, weights="random", device=dev)
+    sem.load_encoder()
+    sem.encoder(np.zeros((8, 30 * SR_M), np.int16))  # warm up cuDNN and cuBLAS
+    out, out_sync = os.path.join(tmp, "corpus16_tokens"), os.path.join(tmp, "corpus16_sync")
+    reset_counts()
+    # one producer thread, so that both runs see the same batches
+    _corpus_run("semantic_s B=8", sem, 8, out, c["dir16"], device_rtfx["semantic_s"],
+                num_workers=1)
+    launches["flash_attention_relkey"] = flash_attention_relkey.launches
+    executor.encode_batch_files(_SynchronousEncoder(sem.encoder), sem.model_config,
+                                batch_size=8, outdir=out_sync, chunk_size=30, num_workers=1,
+                                audio_dir=c["dir16"])
+    ref = {name: np.load(os.path.join(out_sync, name)) for name in _npy_files(out_sync)}
+    _check_corpus_output("semantic_s B=8", out, c["frames16"], ref)
+    say("[4e] semantic_s: every file written once, ids equal to the synchronous dispatch's")
+    say(f"[4e] kernel launches during the corpus phase: {launches}")
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"kernel {name} was not launched by the corpus path")
+    del sem
+    torch.cuda.empty_cache()
+
+
+def phase5e_corpus_goldens(dev, tmp):
+    """The acoustic battery's _i16 rows as PCM16 files through the corpus."""
+    g = np.load(os.path.join(parity.GOLD, "battery_acoustic.npz"))
+    audio, lengths, names = battery(SR)
+    rows = [i for i, name in enumerate(names) if name.endswith("_i16")]
+    d = os.path.join(tmp, "battery_i16")
+    os.makedirs(d)
+    for i in rows:
+        # the rows are int16 values over 2^15 already: this recovers them exactly
+        pcm = np.round(audio[i, : lengths[i]].astype(np.float64) * 32768.0).astype(np.int16)
+        write_wav(os.path.join(d, f"{names[i]}.wav"), pcm[None], SR)
+    failures = []
+    for seed in WEIGHT_SEEDS:
+        at = AudioToken(Tokenizers.acoustic, num_codebooks=16, weights="random", seed=seed,
+                        device=dev)
+        out = os.path.join(tmp, f"battery_i16_tokens_s{seed}")
+        at.encode_batch_files(batch_size=8, outdir=out, chunk_size=30, audio_dir=d)
+        ref = g[f"ids_s{seed}"]
+        for i in rows:
+            tok = np.load(os.path.join(out, f"{names[i]}.npy"))
+            m = -(-int(lengths[i]) // 320)  # the causal encoder's tokens of the valid prefix
+            agree = float((tok == ref[i][:, :m]).mean()) if tok.shape == (16, m) else 0.0
+            thresh = parity.case_thresh("acoustic", names[i])
+            ok = agree >= thresh
+            say(f"[5e] battery s{seed:<2d} {names[i]:14s} through the corpus: agreement "
+                f"{agree:.6f} (>= {thresh}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"s{seed} {names[i]} {agree:.6f}")
+        del at
+    if failures:
+        raise AssertionError("corpus golden gate failed: " + "; ".join(failures))
+
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0, help="seed of phase 4e's corpus")
+    args = ap.parse_args()
     t_start = time.perf_counter()
     phase1_device()
     dev = torch.device("cuda", 0)
@@ -1221,15 +1402,19 @@ def main():
         res.update(k8)
         res.update(phase3e_flash_norel(dev))
     with tempfile.TemporaryDirectory() as tmp:
-        counts = phase4_main_path(dev, tmp)
+        counts, device_rtfx = phase4_main_path(dev, tmp)
         phase5_goldens(dev, tmp)
         counts["flash_attention_relkey"], at = phase4b_semantic_m(dev, tmp)
         phase5b_semantic_m_goldens(dev, tmp, at)
         del at
         torch.cuda.empty_cache()
-        counts["flash_attention_norel"], at = phase4d_semantic_s(dev, tmp)
+        counts["flash_attention_norel"], at, device_rtfx["semantic_s"] = phase4d_semantic_s(
+            dev, tmp)
         phase5d_semantic_s_goldens(dev, tmp, at)
         del at
+        torch.cuda.empty_cache()
+        phase4e_corpus(dev, tmp, args.seed, device_rtfx)
+        phase5e_corpus_goldens(dev, tmp)
         torch.cuda.empty_cache()
     decode_counts = phase4c_decode(dev)
     phase5c_decode_goldens(dev)

@@ -169,14 +169,18 @@ def test_later_slices_raise(port_api, wav_path):
     # behind weights="artifacts" have not
     with pytest.raises(NotImplementedError, match="converters"):
         AudioToken(Tokenizers.semantic_s, device="cpu").load_encoder()
-    with pytest.raises(NotImplementedError):
-        port_api.encode(Path(wav_path).read_bytes())
+    # bytes input has arrived (the native libav decoder): it answers
+    np.testing.assert_array_equal(port_api.encode(Path(wav_path).read_bytes()),
+                                  port_api.encode(wav_path))
     # decode has arrived (tests/test_torch_acoustic_decode.py): it answers
     wav = port_api.decode(np.zeros((1, 16, 4), np.int16))
     assert wav.shape == (1, 4 * 320) and wav.dtype == np.float32
-    with pytest.raises(NotImplementedError):
+    # the corpus executor has arrived (tests/test_torch_corpus.py): it
+    # checks its arguments
+    with pytest.raises(ValueError, match="audio_files or audio_dir"):
         port_api.encode_batch_files(batch_size=2, outdir="unused")
-    with pytest.raises(RuntimeError, match="non-WAV"):
+    # a non-WAV path goes to the native decoder, which names what it could not open
+    with pytest.raises(ValueError, match="could not open"):
         port_api.encode("clip.flac")
 
 

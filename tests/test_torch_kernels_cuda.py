@@ -653,3 +653,29 @@ def test_semantic_s_encoder_on_the_card(dev, attn_impl):
     assert ids.shape == (2, 1, 64) and ids.dtype == np.int16
     ref = HubertEncoder(weights="random", seed=0, device="cpu", attn_impl=attn_impl)(x, lengths)
     assert (ids == ref).mean() >= 0.99
+
+
+def test_corpus_on_the_card(dev, tmp_path):
+    """encode_batch_files on the card: PCM16 and resampled stereo files of
+    several 1 s segments, tokens equal to the same device's
+    ``encode(path, chunk_size)``, and K1-K3 launched by the corpus run."""
+    from audiotoken_tpu_torch import AudioToken, Tokenizers
+    from audiotoken_tpu_torch.io.wavfile import write_wav
+
+    rng = np.random.default_rng(6)
+    for i, (sr, ch, seconds) in enumerate([(24_000, 1, 2.3), (24_000, 1, 0.9),
+                                           (44_100, 2, 1.6), (24_000, 1, 3.4)]):
+        x = (0.25 * rng.standard_normal((ch, int(sr * seconds)))).clip(-1, 1)
+        write_wav(str(tmp_path / f"c{i}.wav"), (x * 32767).astype(np.int16), sr)
+    at = AudioToken(Tokenizers.acoustic, weights="random", device=dev)
+    kernels = (seanet_front, lstm_layer, rvq_encode)
+    before = [k.launches for k in kernels]
+    summary = at.encode_batch_files(batch_size=3, outdir=tmp_path / "out", chunk_size=1.0,
+                                    num_workers=2, audio_dir=tmp_path)
+    assert all(k.launches > b for k, b in zip(kernels, before))
+    assert summary["batches"] == 4 and summary["stages"]["d2h_fetch"]["clock"] == "device"
+    for i in range(4):
+        np.testing.assert_array_equal(np.load(tmp_path / "out" / f"c{i}.npy"),
+                                      at.encode(str(tmp_path / f"c{i}.wav"), chunk_size=1.0)[0])
+    assert at.encode_batch_files(batch_size=3, outdir=tmp_path / "out", chunk_size=1.0,
+                                 audio_dir=tmp_path)["batches"] == 0

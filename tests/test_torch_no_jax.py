@@ -47,10 +47,14 @@ def test_decode_modules_are_checked(module):
     "audiotoken_tpu_torch/nn/hubert.py", "audiotoken_tpu_torch/ops/attn_ablation.py",
     "audiotoken_tpu_torch/ops/attention.py", "audiotoken_tpu_torch/runtime/profiling.py",
     "audiotoken_tpu_torch/encoders.py", "scripts/profile_attn_micro_torch.py",
-    "scripts/profile_decode_torch.py",
+    "scripts/profile_decode_torch.py", "audiotoken_tpu_torch/io/dataset.py",
+    "audiotoken_tpu_torch/io/sink.py", "audiotoken_tpu_torch/io/_native.py",
+    "audiotoken_tpu_torch/runtime/executor.py", "audiotoken_tpu_torch/parallel/hosts.py",
+    "audiotoken_tpu_torch/cli.py", "audiotoken_tpu_torch/utils.py",
+    "audiotoken_tpu_torch/metrics.py",
 ])
 def test_new_modules_are_checked(path):
-    """The semantic_s and profiling modules, and the scripts that
+    """The semantic_s, profiling and corpus modules, and the scripts that
     chip_smoke.py imports or that run on the card."""
     assert ROOT / path in SOURCES
 
