@@ -43,10 +43,14 @@ class AudioToken:
         device: torch device, default ``"cuda"`` (which raises when no GPU
             is present); ``"cpu"`` runs the kernels' plain versions.
         num_codebooks: acoustic codebook count in {2, 4, 8, 16}.
-        weights: ``"random"`` (seeded random init) or a directory holding a
-            converted ``acoustic.npz`` (``hubert.npz`` + ``hubert_kmeans.npz``
-            for semantic_s, ``w2vbert.npz`` + ``w2vbert_vq.npz`` for
-            semantic_m).
+        weights: ``"artifacts"`` (the upstream checkpoints, converted on
+            the fly: staged in ``$AUDIOTOKEN_ARTIFACTS``, else from the hub
+            where ``transformers`` imports), ``"random"`` (seeded random
+            init) or a directory holding a converted ``acoustic.npz``
+            (``hubert.npz`` + ``hubert_kmeans.npz`` for semantic_s,
+            ``w2vbert.npz`` + ``w2vbert_vq.npz`` for semantic_m; the
+            decoders' ``gpt_semantic_*.npz`` and ``bark_fine.npz``), as
+            ``python -m audiotoken_tpu_torch.cli convert`` writes it.
         precision: ``"highest"`` (IEEE f32, token parity), ``"high"`` or
             ``"default"`` (TF32 allowed), ``"bfloat16"`` (acoustic only).
     """

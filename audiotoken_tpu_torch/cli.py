@@ -3,10 +3,12 @@
     python -m audiotoken_tpu_torch.cli tokenize   --tokenizer acoustic --indir D --outdir O
     python -m audiotoken_tpu_torch.cli detokenize --tokenizer acoustic --indir O --outdir W
     python -m audiotoken_tpu_torch.cli bench      --tokenizer acoustic
+    python -m audiotoken_tpu_torch.cli convert    --model acoustic --src encodec_24khz.pt --out W
 
-Every command takes ``--device`` (default ``cuda``, which raises without a
-GPU; ``cpu`` runs the kernels' plain versions). ``convert`` is present and
-raises: the checkpoint converters are a later part of the port.
+The encode, decode and bench commands take ``--device`` (default ``cuda``,
+which raises without a GPU; ``cpu`` runs the kernels' plain versions).
+``convert`` writes one checkpoint into the ``.npz`` store that
+``--weights W`` reads; it runs on the host alone.
 """
 
 import argparse
@@ -18,6 +20,7 @@ import time
 import numpy as np
 
 from .configs import Tokenizers
+from .convert.checkpoints import STORE
 from .logger import get_logger
 
 logger = get_logger(__name__)
@@ -98,11 +101,13 @@ def cmd_detokenize(args):
 
 
 def cmd_convert(args):
-    raise NotImplementedError(
-        "convert: the checkpoint converters (convert/ and weights='artifacts') are the "
-        "next part of the port; use the JAX package's `python -m audiotoken_tpu.cli "
-        "convert`, whose .npz store this package reads"
-    )
+    """A torch checkpoint -> ``<out>/<model>.npz`` of the weight store."""
+    from .convert.checkpoints import convert_checkpoint
+    from .convert.store import save_params
+
+    save_params(os.path.join(args.out, f"{args.model}.npz"),
+                convert_checkpoint(args.model, args.src))
+    logger.info("converted %s -> %s", args.src, args.out)
 
 
 def cmd_bench(args):
@@ -151,11 +156,8 @@ def main(argv=None):
                    help="semantic decode: files per batched device decode")
     d.set_defaults(func=cmd_detokenize)
 
-    c = sub.add_parser("convert", help="convert torch checkpoints (not yet ported; raises)")
-    c.add_argument("--model", required=True,
-                   choices=["acoustic", "hubert", "hubert_kmeans", "w2vbert",
-                            "w2vbert_vq", "gpt_semantic_s_en", "gpt_semantic_m_hi",
-                            "bark_fine"])
+    c = sub.add_parser("convert", help="convert torch checkpoints to the .npz store")
+    c.add_argument("--model", required=True, choices=STORE)
     c.add_argument("--src", required=True)
     c.add_argument("--out", required=True)
     c.set_defaults(func=cmd_convert)

@@ -1,12 +1,13 @@
 """Tokenizer registry, the encoders' and decoders' configurations, and the
 joint vocabulary of the semantic -> acoustic GPT.
 
-Counterpart of ``audiotoken_tpu/configs.py`` for the ported paths:
-acoustic, semantic_s and semantic_m encode, acoustic and semantic decode,
-and the corpus path (the file extensions it reads, and ``AudioConfig``,
-the metadata of one chunk).
+Counterpart of ``audiotoken_tpu/configs.py``: acoustic, semantic_s and
+semantic_m encode, acoustic and semantic decode, the corpus path (the file
+extensions it reads, and ``AudioConfig``, the metadata of one chunk) and
+the upstream checkpoints (``Artifact``, ``ARTIFACTS``).
 """
 
+import os
 from dataclasses import dataclass, field
 from enum import Enum
 from math import ceil
@@ -33,6 +34,78 @@ class Tokenizers(str, Enum):
     acoustic = "acoustic"
     semantic_s = "semantic_s"
     semantic_m = "semantic_m"
+
+
+@dataclass(frozen=True)
+class Artifact:
+    """A pointer to an upstream checkpoint file, resolved on first use.
+
+    Resolution order, under ``root`` (default ``$AUDIOTOKEN_ARTIFACTS``):
+      1. ``<root>/<local_name or basename>``, then
+         ``<root>/<repo_id with / as __>/<filename>``;
+      2. ``huggingface_hub.hf_hub_download`` when that package imports and
+         the network allows it.
+    """
+
+    repo_id: str
+    filename: str
+    revision: Optional[str] = None
+    local_name: Optional[str] = None
+
+    def resolve(self, root: Optional[str] = None) -> str:
+        name = self.local_name or os.path.basename(self.filename)
+        if root is None:
+            root = os.environ.get("AUDIOTOKEN_ARTIFACTS", "")
+        if root:
+            for cand in (os.path.join(root, name),
+                         os.path.join(root, self.repo_id.replace("/", "__"), self.filename)):
+                if os.path.exists(cand):
+                    return cand
+        try:
+            from huggingface_hub import hf_hub_download  # type: ignore
+
+            return hf_hub_download(repo_id=self.repo_id, filename=self.filename,
+                                   revision=self.revision)
+        except Exception as e:  # noqa: BLE001  (ImportError, or any hub failure)
+            raise FileNotFoundError(
+                f"Artifact {self.repo_id}/{self.filename} not found locally "
+                f"(set AUDIOTOKEN_ARTIFACTS to a directory containing "
+                f"'{name}') and hub download failed: {e}"
+            ) from e
+
+
+# Pinned upstream checkpoints.
+_REV = "5d74db4ca565e348e9d15fb782f5589cd7d0f0c0"
+
+ARTIFACTS: Dict[str, Artifact] = {
+    "hubert_kmeans": Artifact(
+        repo_id="voidful/mhubert-base",
+        filename="mhubert_base_vp_en_es_fr_it3_L11_km1000.bin",
+    ),
+    "w2vbert_l21_weights": Artifact(
+        repo_id="cmeraki/audiotoken",
+        filename="w2vbert2_l21/model.safetensors",
+        revision=_REV,
+    ),
+    "w2vbert_vq": Artifact(
+        repo_id="cmeraki/audiotoken",
+        filename=(
+            "semantic_detokenizer/semantic_m/vq_quantizer/"
+            "run4__quantizer__L19_C2048_ckpt8000.pkl"
+        ),
+        revision=_REV,
+    ),
+    "gpt_semantic_s_en": Artifact(
+        repo_id="cmeraki/audiotoken",
+        filename="semantic_detokenizer/semantic_s/hubert_semantic_acoustic_gpt_en.pt",
+        revision=_REV,
+    ),
+    "gpt_semantic_m_hi": Artifact(
+        repo_id="cmeraki/audiotoken",
+        filename="semantic_detokenizer/semantic_m/w2vbert2_semantic_acoustic_gpt_hi.pt",
+        revision=_REV,
+    ),
+}
 
 
 @dataclass(frozen=True)
@@ -86,6 +159,8 @@ class Wav2VecBertConfig(EncoderConfig):
     output_layer: int = 19
     num_clusters: int = 2048
     hidden_dim: int = 1024
+    quantizer_artifact: str = "w2vbert_vq"
+    weights_artifact: str = "w2vbert_l21_weights"
 
 
 @dataclass(frozen=True)

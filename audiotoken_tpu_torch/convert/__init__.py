@@ -1,5 +1,12 @@
-"""Weight store reader (the converters arrive with a later slice)."""
+"""Checkpoint converters and the weight store.
 
-from .store import load_params
+Each converter takes a torch state dict (as numpy arrays) and returns the
+parameter tree of ``weights.py`` (conv kernels [K, C_in, C_out], linear
+kernels [in, out]): weight norm folded, transposes applied, compile
+prefixes stripped. ``store`` writes and reads the trees as flat ``.npz``;
+``safetensors`` reads that format without its package.
+"""
 
-__all__ = ["load_params"]
+from .store import load_params, save_params, state_dict_to_numpy
+
+__all__ = ["load_params", "save_params", "state_dict_to_numpy"]

@@ -294,6 +294,11 @@ class HubertEncoder:
         valid-prefix mask is sent as lengths, any other mask whole."""
         return self._run(input_batch, attention_mask, quantize=True)
 
+    def features(self, input_batch: np.ndarray, attention_mask=None):
+        """Layer-11 features without quantising, left on the device and not
+        waited for -> (features [B, T', 768] f32, n_valid_frames)."""
+        return self._run(input_batch, attention_mask, quantize=False)
+
     def __call__(self, input_batch: np.ndarray, attention_mask=None) -> np.ndarray:
         """[B, T] float32 (normalised) or int16 PCM -> ids [B, 1, T'] int16,
         or, with ``quantize=False``, layer-11 features [B, T', 768] f32."""
@@ -392,6 +397,12 @@ class Wav2VecBertEncoder:
         ``attention_mask`` may be [B] int lengths or a [B, T] mask: a
         valid-prefix mask is sent as lengths, any other mask whole."""
         return self._run(input_batch, attention_mask, pad_to_multiple_of, quantize=True)
+
+    def features(self, input_batch: np.ndarray, attention_mask=None,
+                 pad_to_multiple_of: int = 2):
+        """Conformer features without quantising, left on the device and not
+        waited for -> (features [B, T', 1024] f32, n_valid_frames)."""
+        return self._run(input_batch, attention_mask, pad_to_multiple_of, quantize=False)
 
     def __call__(self, input_batch: np.ndarray, attention_mask=None,
                  pad_to_multiple_of: int = 2) -> np.ndarray:

@@ -13,7 +13,7 @@ than 0.2 s are dropped.
 import queue
 import threading
 from dataclasses import dataclass
-from typing import Callable, Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -41,6 +41,9 @@ class AudioSegmentStream:
     ``on_archive_complete(path, member_names)`` fires after the last member
     of a tar or zip has been read whole, so that the sink can record the
     archive itself as done once every member is written.
+    ``skip_segments`` maps a file name to the count of its leading segments
+    not to emit (a resume past segments already used); they still count in
+    ``on_file_complete``'s ``n_segments``.
     """
 
     def __init__(
@@ -55,6 +58,7 @@ class AudioSegmentStream:
         prefer_int16: bool = False,
         transform_int16_passthrough: bool = False,
         on_archive_complete: Optional[Callable[[str, List[str]], None]] = None,
+        skip_segments: Optional[Dict[str, int]] = None,
     ):
         self.audio_files = list(audio_files)
         self.sample_rate = sample_rate
@@ -65,6 +69,7 @@ class AudioSegmentStream:
         self.transform = transform
         self.on_file_complete = on_file_complete
         self.on_archive_complete = on_archive_complete
+        self.skip_segments = skip_segments or {}
         # int16 passes through only to encoders that scale it on the device,
         # or (transform_int16_passthrough) that apply the host transform's
         # equivalent on the device for int16 input (HubertEncoder); any
@@ -125,7 +130,8 @@ class AudioSegmentStream:
             offsets[name] = start + waveform.shape[-1]
             for seg in self._segments_of_chunk(waveform, name, start):
                 counts[name] = counts.get(name, 0) + 1
-                yield seg
+                if counts[name] > self.skip_segments.get(name, 0):
+                    yield seg
         if prev_name is not None:
             self._complete(prev_name, counts)
         if archive and self.on_archive_complete:
@@ -171,6 +177,7 @@ def batched_segments(
             prefer_int16=stream.prefer_int16,
             transform_int16_passthrough=stream.transform_int16_passthrough,
             on_archive_complete=stream.on_archive_complete,
+            skip_segments=stream.skip_segments,
         )
         try:
             for seg in sub:

@@ -9,15 +9,16 @@ _FORMAT = (
 )
 
 
-def get_logger(name: str) -> logging.Logger:
-    """Return ``name``'s logger, writing WARNING and above to stderr.
+def get_logger(name: str, level="WARNING") -> logging.Logger:
+    """Return ``name``'s logger, writing ``level`` and above to stderr (the
+    training tools log their progress at INFO).
 
     The handler is installed once per logger, however often this is called."""
     logger = logging.getLogger(name)
     if getattr(logger, "_audiotoken_configured", False):
         return logger
     console = logging.StreamHandler(sys.stderr)
-    console.setLevel(logging.WARNING)
+    console.setLevel(level)
     console.setFormatter(logging.Formatter(_FORMAT, datefmt="%Y-%m-%d %H:%M:%S"))
     logger.setLevel(logging.DEBUG)
     logger.addHandler(console)

@@ -6,7 +6,9 @@ attention, exact-GELU 4x MLP, weight-tied lm_head; 12 layers, 12 heads x
 64, 768 wide, block 1024, vocab 53,376 at full size.
 
 :class:`GPT` holds the weights (linears in torch's ``[out, in]`` layout)
-and runs the full and the prefill forward in plain PyTorch. The decode
+and runs the full and the prefill forward in plain PyTorch; the full
+forward is also the training forward (:func:`gpt_loss`,
+``train/gpt_train.py``), which the JAX package too runs without a kernel. The decode
 step, one token a row over the KV cache, is the kernel path: per layer
 K7 ``decode_qkv`` -> K6 ``decode_attention`` (which takes q unscaled from
 the qkv row and also appends the token to the cache) -> K7 ``decode_ffn``,
@@ -170,6 +172,34 @@ class GPT(nn.Module):
                                  qkv[:, C:2 * C], qkv[:, 2 * C:], chained=True)
             x = decode_ffn(x, a, w_out, ln2_w, ln2_b, w_in, w_out2, b_out, b_in, b_out2, eps)
         return self.logits(F.layer_norm(x, (C,), self.ln_f.weight, self.ln_f.bias, eps))
+
+
+def gpt_loss(model: GPT, idx: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy over the targets that are not -1:
+    the sum of their negative log-likelihoods over max(count, 1), so a batch
+    with no valid target gives 0, not NaN (``audiotoken_tpu.nn.gpt.gpt_loss``)."""
+    logits = model(idx)
+    nll = F.cross_entropy(logits.flatten(0, 1), targets.flatten().long(), ignore_index=-1,
+                          reduction="sum")
+    return nll / (targets >= 0).sum().clamp(min=1)
+
+
+def expand_vocab(params, new_vocab_size: int, seed: int = 0):
+    """Grow the tied embedding / lm_head of a JAX-layout GPT tree to
+    ``new_vocab_size`` rows: the new rows are drawn from a gaussian with the
+    old rows' mean and 1e-5 times their covariance (Hewitt's vocabulary
+    expansion), with the JAX package's numpy draw, bit for bit."""
+    old = np.asarray(params["wte"], np.float64)
+    old_v = old.shape[0]
+    if new_vocab_size <= old_v:
+        raise ValueError(f"new vocab {new_vocab_size} <= old {old_v}")
+    mu = old.mean(axis=0)
+    centered = old - mu
+    sigma = centered.T @ centered / old_v
+    rng = np.random.default_rng(seed)
+    new_rows = rng.multivariate_normal(mu, 1e-5 * sigma, size=new_vocab_size - old_v,
+                                       method="svd")
+    return {**params, "wte": np.concatenate([old, new_rows]).astype(np.float32)}
 
 
 def _bucket_len(n: int, bucket: int, cap: int) -> int:

@@ -1,10 +1,24 @@
-"""Model parameters: a converted store, or seeded random ones.
+"""Model parameters: a converted store, the upstream checkpoints, or
+seeded random ones.
 
 ``get_acoustic_params``, ``get_hubert_params``, ``get_w2vbert_params``,
 ``get_semantic_gpt_params`` and ``get_bark_fine_params`` return the JAX package's parameter trees
 (numpy, conv kernels [K, C_in, C_out], linear kernels [in, out]); the
 ``*_from_numpy`` functions are the bridges from those trees to the port's
-modules' state dicts (f32; a caller casts to its stage dtype after).
+modules' state dicts (f32; a caller casts to its stage dtype after), and
+``gpt_to_numpy`` the bridge back from a (trained) ``GPT``.
+
+``weights`` is one of:
+  * a directory of converted ``.npz`` files (``acoustic.npz``,
+    ``hubert.npz`` + ``hubert_kmeans.npz``, ``w2vbert.npz`` +
+    ``w2vbert_vq.npz``, ``gpt_semantic_s_en.npz``, ``gpt_semantic_m_hi.npz``,
+    ``bark_fine.npz``), as ``python -m audiotoken_tpu_torch.cli convert``
+    and ``scripts/convert_real_torch.py`` write them;
+  * ``"artifacts"``: the upstream torch checkpoints, converted on the fly
+    (``convert/checkpoints.py``): each looked up first in
+    ``$AUDIOTOKEN_ARTIFACTS``, then on the Hugging Face hub where
+    ``transformers`` (or ``huggingface_hub``) imports;
+  * ``"random"``: seeded numpy draws, bit-identical to the JAX package's.
 """
 
 import os
@@ -12,18 +26,16 @@ import os
 import numpy as np
 import torch
 
+from .convert.checkpoints import artifact_tree
 from .convert.store import load_params
 
 
 def get_acoustic_params(weights: str = "artifacts", seed: int = 0):
-    """{'encoder', 'decoder', 'codebooks'} for the SEANet + RVQ codec.
-
-    ``weights`` is a directory holding ``acoustic.npz`` (the converted
-    store), or ``"random"``: seeded numpy draws, bit-identical to
-    ``audiotoken_tpu.weights.get_acoustic_params("random", seed)``.
-    """
+    """{'encoder', 'decoder', 'codebooks'} for the SEANet + RVQ codec, from
+    ``acoustic.npz`` under ``weights``, EnCodec 24 kHz (``"artifacts"``) or
+    seeded draws (``"random"``)."""
     if weights == "artifacts":
-        raise _artifacts_unsupported()
+        return artifact_tree("acoustic")
     if weights == "random":
         from .nn.rvq import RVQConfig, init_codebooks
         from .nn.seanet import SeanetConfig, init_decoder_params, init_encoder_params
@@ -103,19 +115,17 @@ def acoustic_decoder_from_numpy(tree):
 
 def get_w2vbert_params(weights: str = "artifacts", seed: int = 0, config=None):
     """(conformer params, VQ codebook [num_clusters, hidden_dim]) for
-    semantic_m.
-
-    ``weights`` is a directory holding ``w2vbert.npz`` and
-    ``w2vbert_vq.npz`` (the converted store), or ``"random"``: seeded numpy
-    draws of the params and then the codebook from one generator,
-    bit-identical to ``audiotoken_tpu.weights.get_w2vbert_params``.
-    """
+    semantic_m, from ``w2vbert.npz`` + ``w2vbert_vq.npz`` under ``weights``,
+    the artifacts ``config.weights_artifact`` and ``config.quantizer_artifact``
+    (``"artifacts"``), or ``"random"``: the params and then the codebook from
+    one generator."""
     from .configs import Wav2VecBertConfig
     from .nn.conformer import W2VBertConfig, init_w2vbert_params
 
     config = config or Wav2VecBertConfig()
     if weights == "artifacts":
-        raise _artifacts_unsupported()
+        return (artifact_tree("w2vbert", artifact=config.weights_artifact),
+                artifact_tree("w2vbert_vq", artifact=config.quantizer_artifact)["codebook"])
     if weights == "random":
         rng = np.random.default_rng(seed)
         params = init_w2vbert_params(rng, W2VBertConfig())
@@ -170,19 +180,18 @@ def w2vbert_from_numpy(tree, num_layers: int):
 
 def get_hubert_params(weights: str = "artifacts", seed: int = 0, config=None):
     """(HuBERT params, k-means centroids [num_clusters, hidden_dim]) for
-    semantic_s.
-
-    ``weights`` is a directory holding ``hubert.npz`` and
-    ``hubert_kmeans.npz`` (the converted store), or ``"random"``: seeded
-    numpy draws of the params and then the centroids from one generator,
-    bit-identical to ``audiotoken_tpu.weights.get_hubert_params``.
-    """
+    semantic_s, from ``hubert.npz`` + ``hubert_kmeans.npz`` under
+    ``weights``, mHuBERT-base and its k-means (``"artifacts"``: the model
+    staged as ``convert.checkpoints.STAGED["hubert"]``, else from the hub;
+    the k-means through ``config.quantizer_artifact``), or ``"random"``: the params and then the
+    centroids from one generator."""
     from .configs import HubertEncoderConfig
     from .nn.hubert import HubertConfig, init_hubert_params
 
     config = config or HubertEncoderConfig()
     if weights == "artifacts":
-        raise _artifacts_unsupported()
+        return (artifact_tree("hubert", model_id=config.model_id),
+                artifact_tree("hubert_kmeans", artifact=config.quantizer_artifact)["centroids"])
     if weights == "random":
         rng = np.random.default_rng(seed)
         params = init_hubert_params(rng, HubertConfig())
@@ -238,28 +247,20 @@ def hubert_from_numpy(tree, num_layers: int):
     return state
 
 
-def _artifacts_unsupported():
-    return NotImplementedError(
-        'weights="artifacts" needs the checkpoint converters, which come '
-        "with a later slice of the port; convert with the JAX package's "
-        'converter and pass its output directory, or use weights="random"'
-    )
-
-
 def get_semantic_gpt_params(weights: str, seed: int, artifact_key: str, vocab_size: int,
                             config=None):
     """(GPT params, GPTConfig) of the semantic -> acoustic model (12 layers,
     12 heads, 768 wide, block 1024, ``vocab_size``).
 
     ``weights`` is a directory holding ``<artifact_key>.npz`` (for example
-    ``gpt_semantic_m_hi.npz``), or ``"random"``: seeded numpy draws,
-    bit-identical to ``audiotoken_tpu.weights.get_semantic_gpt_params``.
-    ``config`` replaces the full-size GPTConfig (tests)."""
+    ``gpt_semantic_m_hi.npz``), ``"artifacts"`` (the nanoGPT checkpoint
+    ``configs.ARTIFACTS[artifact_key]``) or ``"random"``. ``config``
+    replaces the full-size GPTConfig (tests)."""
     from .nn.gpt import GPTConfig, init_gpt_params
 
     cfg = config or GPTConfig(vocab_size=vocab_size)
     if weights == "artifacts":
-        raise _artifacts_unsupported()
+        return artifact_tree(artifact_key, cfg), cfg
     if weights == "random":
         return init_gpt_params(np.random.default_rng(seed), cfg), cfg
     path = os.path.join(weights, f"{artifact_key}.npz")
@@ -271,15 +272,15 @@ def get_semantic_gpt_params(weights: str, seed: int, artifact_key: str, vocab_si
 def get_bark_fine_params(weights: str, seed: int, config=None):
     """(Bark-fine params, BarkFineConfig): 24 layers, 16 heads, 1024 wide.
 
-    ``weights`` is a directory holding ``bark_fine.npz``, or ``"random"``:
-    seeded numpy draws, bit-identical to
-    ``audiotoken_tpu.weights.get_bark_fine_params``. ``config`` replaces the
+    ``weights`` is a directory holding ``bark_fine.npz``, ``"artifacts"``
+    (suno's fine checkpoint staged as ``convert.checkpoints.STAGED["bark_fine"]``, else HF's
+    ``BarkFineModel`` from the hub) or ``"random"``. ``config`` replaces the
     full-size BarkFineConfig (tests)."""
     from .nn.bark_fine import BarkFineConfig, init_bark_fine_params
 
     cfg = config or BarkFineConfig()
     if weights == "artifacts":
-        raise _artifacts_unsupported()
+        return artifact_tree("bark_fine", cfg), cfg
     if weights == "random":
         return init_bark_fine_params(np.random.default_rng(seed), cfg), cfg
     path = os.path.join(weights, "bark_fine.npz")
@@ -319,6 +320,32 @@ def gpt_from_numpy(tree):
     layer_norm = _transformer_state(tree["layers"], state)
     layer_norm("ln_f", tree["ln_f"])
     return state
+
+
+def gpt_to_numpy(model):
+    """The port's ``GPT`` -> JAX-layout tree (f32 numpy; linear kernels
+    [in, out], absent biases None): the inverse of :func:`gpt_from_numpy`,
+    so that a trained GPT goes to ``save_params`` and back through
+    ``weights=<dir>``."""
+
+    def a(t):
+        return t.detach().float().cpu().numpy()
+
+    def linear(m):
+        return {"kernel": np.ascontiguousarray(a(m.weight).T),
+                "bias": None if m.bias is None else a(m.bias)}
+
+    def layer_norm(m):
+        return {"scale": a(m.weight), "bias": None if m.bias is None else a(m.bias)}
+
+    return {
+        "wte": a(model.wte), "wpe": a(model.wpe), "ln_f": layer_norm(model.ln_f),
+        "layers": [{"ln1": layer_norm(b.ln1),
+                    "attn": {"qkv": linear(b.qkv), "out": linear(b.out)},
+                    "ln2": layer_norm(b.ln2),
+                    "mlp": {"in": linear(b.mlp_in), "out": linear(b.mlp_out)}}
+                   for b in model.layers],
+    }
 
 
 def bark_fine_from_numpy(tree):

@@ -88,6 +88,34 @@ Phases, each of which raises on failure (the script then exits non-zero):
      every weight seed, against ``battery_acoustic.npz`` under the per-case
      acoustic contract.
 
+  6a. the converters: an HF-named EnCodec 24 kHz checkpoint and an
+     ``_orig_mod.`` nanoGPT one, built from the seed-0 random trees
+     (:func:`encodec_state_dict`, :func:`nanogpt_state_dict`), staged in a
+     temporary ``$AUDIOTOKEN_ARTIFACTS``; the battery through
+     ``AudioToken(acoustic, weights="artifacts")`` and through ``cli
+     convert`` -> ``weights=<dir>``: codes equal bit for bit, within the
+     acoustic contract of phase 5's seed-0 codes, K1-K3 launched; every
+     store written checked against the manifests, the GPT's tree equal to
+     its source;
+  6b. quantizer training: ``train_quantizer("semantic_m")`` over phase 4e's
+     16 kHz corpus in 10 s segments (each in the 12 s bucket, T = 600 at
+     K4) with ``batch_vectors`` 16,000, its vectors/s and the encoder's
+     share of its wall; K4 launched, and held against its plain version at
+     [8, 16, 600, 64] and [8, 16, 500, 64] with the padding mask (the
+     kernels line's ``flash_attention_relkey_vq`` is the first); one EMA step
+     on the card against the CPU's; a second call resumes at the saved step
+     and reads only the files whose vectors were never trained; the trained
+     codebook's cluster diagnostics;
+  6c. GPT training: ``TrainStep`` on the full GPT (12 x 768, block 1024,
+     vocab 53,376), B=8 x T=1024, 10 steps on one batch under ``default``
+     (TF32): the loss falls; against the same steps under ``highest``, step
+     1's loss within ``GPT_STEP1_ATOL``, every step's within
+     ``GPT_LOSS_ATOL``, the parameters' change within ``GPT_UPDATE_REL``,
+     and a bf16 forward outside one of the three;
+     ms a step, tokens/s, peak memory; the trained model through
+     ``gpt_to_numpy`` -> ``save_params`` -> ``weights=<dir>`` decodes the
+     same greedy tokens as the model in memory, K6 and K7 launched.
+
 Every kernel entry carries ``bound_ms``, the least time the card could take
 for the same work: the larger of its operations over the H100's peak for
 their type (67 TFLOP/s f32 FMAs, 989 TFLOP/s bf16; K1's, K3's and K4's
@@ -125,15 +153,23 @@ import verify_tpu_parity as parity  # noqa: E402  (numpy-only at import)
 from golden_cases import WEIGHT_SEEDS, api_clips, battery  # noqa: E402
 
 from audiotoken_tpu_torch import AudioToken, Tokenizers  # noqa: E402
+from audiotoken_tpu_torch import cli  # noqa: E402
 from audiotoken_tpu_torch.configs import COMMONS  # noqa: E402
-from audiotoken_tpu_torch.decoders import AcousticDecoder, Wav2VecBertDecoder  # noqa: E402
+from audiotoken_tpu_torch.convert.manifest import validate_tree  # noqa: E402
+from audiotoken_tpu_torch.convert.store import _flatten, load_params, save_params  # noqa: E402
+from audiotoken_tpu_torch.decoders import (  # noqa: E402
+    AcousticDecoder,
+    Wav2VecBertDecoder,
+    _module_from_state,
+)
 from audiotoken_tpu_torch.encoders import (  # noqa: E402
     AcousticEncoder,
     HubertEncoder,
     Wav2VecBertEncoder,
 )
 from audiotoken_tpu_torch.io import _native  # noqa: E402
-from audiotoken_tpu_torch.io.wavfile import write_wav  # noqa: E402
+from audiotoken_tpu_torch.io.wavfile import read_wav, write_wav  # noqa: E402
+from audiotoken_tpu_torch.nn.gpt import GPT, GPTConfig, GPTSampler  # noqa: E402
 from audiotoken_tpu_torch.nn.hubert import feature_lengths  # noqa: E402
 from audiotoken_tpu_torch.ops import _build  # noqa: E402
 from audiotoken_tpu_torch.ops.attention import padding_bias  # noqa: E402
@@ -158,6 +194,7 @@ from audiotoken_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_relkey_plain,
     noncausal_attention_plain,
 )
+from audiotoken_tpu_torch.ops.lookup import nearest_centroid  # noqa: E402
 from audiotoken_tpu_torch.ops.lstm import lstm_layer, lstm_layer_plain  # noqa: E402
 from audiotoken_tpu_torch.ops.rvq import rvq_encode, rvq_encode_plain, rvq_plan  # noqa: E402
 from audiotoken_tpu_torch.ops.seanet_front import (  # noqa: E402
@@ -167,6 +204,19 @@ from audiotoken_tpu_torch.ops.seanet_front import (  # noqa: E402
 )
 from audiotoken_tpu_torch.runtime import executor  # noqa: E402
 from audiotoken_tpu_torch.runtime.precision import get_policy  # noqa: E402
+from audiotoken_tpu_torch.train.cluster_diagnostics import compare_real_vs_random  # noqa: E402
+from audiotoken_tpu_torch.train.gpt_train import TrainStep  # noqa: E402
+from audiotoken_tpu_torch.train.vq_train import (  # noqa: E402
+    VQTrainConfig,
+    _ema_update,
+    train_quantizer,
+)
+from audiotoken_tpu_torch.weights import (  # noqa: E402
+    get_acoustic_params,
+    get_semantic_gpt_params,
+    gpt_from_numpy,
+    gpt_to_numpy,
+)
 
 SR = 24_000
 SR_M = 16_000  # semantic_m
@@ -511,11 +561,14 @@ def phase4_main_path(dev, tmp):
 
 
 def phase5_goldens(dev, tmp):
+    """The acoustic golden gate; returns the seed-0 battery codes."""
     g = np.load(os.path.join(parity.GOLD, "battery_acoustic.npz"))
     audio, _lengths, names = battery(SR)
     failures = []
     for seed in WEIGHT_SEEDS:
         ids = AcousticEncoder(weights="random", seed=seed, device=dev)(audio)
+        if seed == 0:
+            ids_s0 = ids
         ref = g[f"ids_s{seed}"]
         per_case = (ids.reshape(len(names), -1) == ref.reshape(len(names), -1)).mean(axis=1)
         for name, agree in zip(names, per_case):
@@ -545,6 +598,7 @@ def phase5_goldens(dev, tmp):
             failures.append(f"api {name} {agree:.6f}")
     if failures:
         raise AssertionError("golden gate failed: " + "; ".join(failures))
+    return ids_s0
 
 
 def phase3b_flash_attention(dev):
@@ -1300,7 +1354,8 @@ def _corpus_run(tag, at, B, out, audio_dir, device_rtfx, num_workers=4):
 def phase4e_corpus(dev, tmp, seed, device_rtfx):
     """The corpus path on the card: acoustic at B=8 and 32, then semantic_s
     at B=8. ``device_rtfx`` holds phase 4's AcousticEncoder RTFx by batch
-    and, under "semantic_s", phase 4d's HubertEncoder RTFx at B=8."""
+    and, under "semantic_s", phase 4d's HubertEncoder RTFx at B=8. Returns
+    the corpus (:func:`profile_corpus_torch.make_corpus`)."""
     t0 = time.perf_counter()
     c = corpus.make_corpus(seed, tmp)
     say(f"[4e] corpus (seed {seed}): {len(c['sources'])} files, {c['seconds']:.1f} s of audio "
@@ -1351,6 +1406,7 @@ def phase4e_corpus(dev, tmp, seed, device_rtfx):
             raise AssertionError(f"kernel {name} was not launched by the corpus path")
     del sem
     torch.cuda.empty_cache()
+    return c
 
 
 def phase5e_corpus_goldens(dev, tmp):
@@ -1386,6 +1442,402 @@ def phase5e_corpus_goldens(dev, tmp):
         raise AssertionError("corpus golden gate failed: " + "; ".join(failures))
 
 
+def encodec_state_dict(tree):
+    """The inverse of ``convert/encodec.py``: an acoustic parameter tree ->
+    the HF ``EncodecModel`` (24 kHz) state dict, numpy. Each conv weight is
+    split into weight norm's ``original0`` = ||w|| over dims (1, 2) and
+    ``original1`` = w (the refold rounds a weight by at most one ulp); the
+    LSTM weights and codebooks go as they are, with the codebook buffers
+    the HF model carries beside them."""
+    sd = {}
+
+    def conv(prefix, p):
+        w = np.ascontiguousarray(np.asarray(p["kernel"], np.float32).transpose(2, 1, 0))
+        g = np.sqrt((w.astype(np.float64) ** 2).sum(axis=(1, 2), keepdims=True))
+        sd[f"{prefix}.conv.bias"] = np.asarray(p["bias"], np.float32)
+        sd[f"{prefix}.conv.parametrizations.weight.original0"] = g.astype(np.float32)
+        sd[f"{prefix}.conv.parametrizations.weight.original1"] = w
+
+    def lstm(prefix, p):
+        for i, layer in enumerate(p["layers"]):
+            for name, key in (("wih", "weight_ih"), ("whh", "weight_hh"), ("bih", "bias_ih"),
+                              ("bhh", "bias_hh")):
+                sd[f"{prefix}.lstm.{key}_l{i}"] = np.asarray(layer[name], np.float32)
+
+    def res(prefix, p):
+        conv(f"{prefix}.block.1", p["conv1"])
+        conv(f"{prefix}.block.3", p["conv2"])
+        if "shortcut" in p:
+            conv(f"{prefix}.shortcut", p["shortcut"])
+
+    enc, dec = tree["encoder"], tree["decoder"]
+    conv("encoder.layers.0", enc["conv_in"])
+    idx = 1
+    for stage in enc["stages"]:
+        for r in stage["res"]:
+            res(f"encoder.layers.{idx}", r)
+            idx += 1
+        conv(f"encoder.layers.{idx + 1}", stage["down"])  # after the ELU
+        idx += 2
+    lstm(f"encoder.layers.{idx}", enc["lstm"])
+    conv(f"encoder.layers.{idx + 2}", enc["conv_out"])  # after the LSTM and an ELU
+    conv("decoder.layers.0", dec["conv_in"])
+    lstm("decoder.layers.1", dec["lstm"])
+    idx = 2
+    for stage in dec["stages"]:
+        conv(f"decoder.layers.{idx + 1}", stage["up"])  # after the ELU
+        idx += 2
+        for r in stage["res"]:
+            res(f"decoder.layers.{idx}", r)
+            idx += 1
+    conv(f"decoder.layers.{idx + 1}", dec["conv_out"])
+    for k, cb in enumerate(np.asarray(tree["codebooks"], np.float32)):
+        pre = f"quantizer.layers.{k}.codebook"
+        sd[f"{pre}.inited"] = np.ones(1, np.float32)
+        sd[f"{pre}.cluster_size"] = np.ones(cb.shape[0], np.float32)
+        sd[f"{pre}.embed"] = cb
+        sd[f"{pre}.embed_avg"] = cb.copy()
+    return sd
+
+
+def nanogpt_state_dict(tree):
+    """The inverse of ``convert/gpt.py``: a GPT parameter tree -> a nanoGPT
+    state dict behind torch.compile's ``_orig_mod.`` prefix (linears
+    [out, in], no entry for an absent bias), numpy."""
+    sd = {}
+
+    def put(name, p, kernel=None):
+        w = p["scale"] if kernel is None else np.ascontiguousarray(np.asarray(p[kernel]).T)
+        sd[f"_orig_mod.{name}.weight"] = np.asarray(w, np.float32)
+        if p.get("bias") is not None:
+            sd[f"_orig_mod.{name}.bias"] = np.asarray(p["bias"], np.float32)
+
+    sd["_orig_mod.transformer.wte.weight"] = np.asarray(tree["wte"], np.float32)
+    sd["_orig_mod.transformer.wpe.weight"] = np.asarray(tree["wpe"], np.float32)
+    put("transformer.ln_f", tree["ln_f"])
+    for i, layer in enumerate(tree["layers"]):
+        pre = f"transformer.h.{i}"
+        put(f"{pre}.ln_1", layer["ln1"])
+        put(f"{pre}.attn.c_attn", layer["attn"]["qkv"], "kernel")
+        put(f"{pre}.attn.c_proj", layer["attn"]["out"], "kernel")
+        put(f"{pre}.ln_2", layer["ln2"])
+        put(f"{pre}.mlp.c_fc", layer["mlp"]["in"], "kernel")
+        put(f"{pre}.mlp.c_proj", layer["mlp"]["out"], "kernel")
+    return sd
+
+
+def _torch_save(sd, path, wrap=False):
+    sd = {k: torch.from_numpy(v) for k, v in sd.items()}
+    torch.save({"model": sd, "iter_num": 0} if wrap else sd, path)
+
+
+def _same_tree(a, b):
+    fa, fb = _flatten(a), _flatten(b)
+    return fa.keys() == fb.keys() and all(
+        (fa[k] is None and fb[k] is None)
+        or (fa[k] is not None and fb[k] is not None and np.array_equal(fa[k], fb[k]))
+        for k in fa)
+
+
+def phase6a_converters(dev, tmp, ref_ids):
+    """Upstream-format checkpoints built from the seed-0 random trees,
+    converted two ways: ``weights="artifacts"`` from a staged
+    ``$AUDIOTOKEN_ARTIFACTS``, and ``cli convert`` -> ``weights=<dir>``.
+    ``ref_ids``: phase 5's seed-0 battery codes from ``weights="random"``."""
+    t_phase = t0 = time.perf_counter()
+    art, store = os.path.join(tmp, "artifacts"), os.path.join(tmp, "store")
+    os.makedirs(art)
+    acoustic_src = os.path.join(art, "encodec_24khz.pt")
+    tree = get_acoustic_params("random", 0)
+    _torch_save(encodec_state_dict(tree), acoustic_src)
+    gpt_src = os.path.join(art, "hubert_semantic_acoustic_gpt_en.pt")
+    gpt_tree, _ = get_semantic_gpt_params("random", 0, "gpt_semantic_s_en",
+                                          GPTConfig().vocab_size)
+    _torch_save(nanogpt_state_dict(gpt_tree), gpt_src, wrap=True)
+    say(f"[6a] HF-named EnCodec and _orig_mod. nanoGPT checkpoints written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    saved = os.environ.get("AUDIOTOKEN_ARTIFACTS")
+    os.environ["AUDIOTOKEN_ARTIFACTS"] = art
+    try:
+        audio, _lengths, names = battery(SR)
+        reset_counts()
+        at = AudioToken(Tokenizers.acoustic, num_codebooks=16, weights="artifacts", device=dev)
+        at.load_encoder()
+        ids_art = at.encoder(audio)
+        counts = {k.__name__: k.launches for k in ACOUSTIC_KERNELS}
+        del at
+        gpt_art, _ = get_semantic_gpt_params("artifacts", 0, "gpt_semantic_s_en",
+                                             GPTConfig().vocab_size)
+    finally:
+        if saved is None:
+            del os.environ["AUDIOTOKEN_ARTIFACTS"]
+        else:
+            os.environ["AUDIOTOKEN_ARTIFACTS"] = saved
+    say(f"[6a] kernel launches of AudioToken(acoustic, weights='artifacts') on the battery: "
+        f"{counts}")
+    for name, n in counts.items():
+        if n < 1:
+            raise AssertionError(f"kernel {name} was not launched from the converted weights")
+
+    t0 = time.perf_counter()
+    cli.main(["convert", "--model", "acoustic", "--src", acoustic_src, "--out", store])
+    cli.main(["convert", "--model", "gpt_semantic_s_en", "--src", gpt_src, "--out", store])
+    say(f"[6a] cli convert of both into {sorted(os.listdir(store))} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in ("acoustic", "gpt_semantic_s_en"):
+        validate_tree(load_params(os.path.join(store, f"{name}.npz")), name)
+    validate_tree(gpt_art, "gpt_semantic_s_en")
+    if not (_same_tree(gpt_art, gpt_tree)
+            and _same_tree(load_params(os.path.join(store, "gpt_semantic_s_en.npz")), gpt_tree)):
+        raise AssertionError("the converted GPT differs from the tree its checkpoint came from")
+    at = AudioToken(Tokenizers.acoustic, num_codebooks=16, weights=store, device=dev)
+    at.load_encoder()
+    ids_cli = at.encoder(audio)
+    del at
+    if not np.array_equal(ids_art, ids_cli):
+        raise AssertionError("weights='artifacts' and cli convert -> weights=<dir> disagree")
+    per_case = (ids_art.reshape(len(names), -1) == ref_ids.reshape(len(names), -1)).mean(axis=1)
+    failures = []
+    for name, agree in zip(names, per_case):
+        thresh = parity.case_thresh("acoustic", name)
+        if agree < thresh:
+            failures.append(f"{name} {agree:.6f} < {thresh}")
+    say(f"[6a] stores validated against the manifests; both routes' codes equal bit for bit; "
+        f"against weights='random' per case {' '.join(f'{a:.6f}' for a in per_case)}; the "
+        f"GPT's converted tree equals its source tree")
+    if failures:
+        raise AssertionError("converted acoustic codes outside the contract: " + "; ".join(failures))
+    torch.cuda.empty_cache()
+    say(f"[6a] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+VQ_BATCH_VECTORS = 16_000
+# one EMA step on the card against the CPU: assignments may flip on near
+# ties (IEEE f32 sums in another order); rows no flip touches agree within
+EMA_AGREEMENT = 0.999
+EMA_REL = 1e-5
+
+
+def _ema_step_card_vs_cpu(dev, state, x):
+    """The same EMA step (the trained state, the same vectors) on the card
+    and on the CPU -> (assignment agreement, max relative codebook
+    difference over the rows that no flipped vector touches)."""
+    cfg = VQTrainConfig()
+    cpu_state = tuple(s.cpu() for s in state)
+    new_dev, _ = _ema_update(state, x, cfg)
+    new_cpu, _ = _ema_update(cpu_state, x.cpu(), cfg)
+    with get_policy("highest").numerics():
+        idx_dev = nearest_centroid(x, state[0]).cpu()
+    idx_cpu = nearest_centroid(x.cpu(), cpu_state[0])
+    flips = idx_dev != idx_cpu
+    touched = torch.zeros(cfg.codebook_size, dtype=torch.bool)
+    touched[idx_dev[flips]] = True
+    touched[idx_cpu[flips]] = True
+    cb_dev, cb_cpu = new_dev[0].cpu()[~touched], new_cpu[0][~touched]
+    rel = ((cb_dev - cb_cpu).abs().max() / cb_cpu.abs().max()).item()
+    return 1.0 - flips.float().mean().item(), rel, int(touched.sum())
+
+
+def phase6b_quantizer(dev, tmp, c):
+    """Quantizer training (semantic_m, EMA VQ 2048) over phase 4e's 16 kHz
+    corpus in 10 s segments -> K4's row for the kernels line."""
+    t_phase = time.perf_counter()
+    outdir = os.path.join(tmp, "vq")
+    files = sorted(os.listdir(c["dir16"]))
+    reset_counts()
+    t1 = train_quantizer("semantic_m", c["dir16"], outdir, batch_vectors=VQ_BATCH_VECTORS,
+                         weights="random", device=dev)
+    launches = flash_attention_relkey.launches
+    st = t1.stats
+    enc_s, setup_s = st["timers"].totals["encode"], st["timers"].totals["setup"]
+    stream_s = st["wall_s"] - setup_s  # the corpus's wall after the weights are on the card
+    with open(os.path.join(outdir, "processed_files.json")) as f:
+        processed = json.load(f)["files"]
+    say(f"[6b] train_quantizer(semantic_m, {len(files)} files, {c['seconds16']:.1f} s of audio, "
+        f"batch_vectors {VQ_BATCH_VECTORS}): {t1.steps} steps, {st['vectors']} vectors trained "
+        f"in {stream_s:.2f} s after a {setup_s:.2f} s set-up ({st['vectors'] / stream_s:.0f} "
+        f"vectors/s), the encoder {enc_s:.2f} s ({100 * enc_s / stream_s:.1f} % of that wall), "
+        f"updates "
+        f"{st['timers'].totals['update']:.3f} s; K4 launched {launches} times; "
+        f"{len(processed)} of {len(files)} files recorded as processed")
+    if launches < W2V_BLOCKS or t1.steps < 1:
+        raise AssertionError(f"quantizer training ran {t1.steps} steps, K4 {launches} launches")
+
+    # the shape the path gives K4: a 10 s segment in its 12 s bucket
+    enc = Wav2VecBertEncoder(weights="random", device=dev, quantize=False)
+    clips = [read_wav(os.path.join(c["dir16"], f))[0][0] for f in files]
+    pcm = np.stack([w[: 10 * SR_M] for w in clips if w.shape[-1] >= 10 * SR_M][:8])
+    feats, n = enc.features(pcm)
+    T = feats.shape[1]
+    x = torch.cat(list(feats[:, :n])).float()
+    del enc
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(6)
+
+    def t(shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    q, k, v, E = t((8, 16, T, 64), 0.3), t((8, 16, T, 64), 0.3), t((8, 16, T, 64), 1.0), \
+        t((73, 64), 0.02)
+    mask = torch.ones((8, T), device=dev)
+    mask[:, n:] = 0.0  # the bucket's padding
+    res = {}
+    with get_policy("highest").numerics():
+        for TT in (T, 500):
+            qq, kk, vv = (a[:, :, :TT].contiguous() for a in (q, k, v))
+            mm = mask[:, :TT].contiguous()
+            out = flash_attention_relkey(qq, kk, vv, E, mm)
+            err = (out - flash_attention_relkey_plain(qq, kk, vv, E, mm)).abs().max().item()
+            ms = cuda_ms(lambda: flash_attention_relkey(qq, kk, vv, E, mm), reps=9)
+            plain_ms = cuda_ms(lambda: flash_attention_relkey_plain(qq, kk, vv, E, mm), reps=9)
+            say(f"[6b] K4 flash_attention_relkey [8, 16, {TT}, 64], masked to {min(n, TT)} "
+                f"frames: max|kernel-plain| {err:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
+            if not err <= KERNEL_ATOL:
+                raise AssertionError(f"K4 at T={TT} differs from its plain version by {err}")
+            flops = (4 * TT * TT + 2 * TT * E.shape[0]) * 64 * 8 * 16
+            moved = 4 * 8 * 16 * TT * 64 * 4 + nbytes(E, mm)
+            res[TT] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                           **bound(flops, moved, "tf32x3"),
+                           bound_f32_ms=bound(flops, moved, "f32")["bound_ms"])
+    del q, k, v
+
+    agree, rel, touched = _ema_step_card_vs_cpu(dev, t1.state, x)
+    say(f"[6b] one EMA step on {x.shape[0]} vectors, card against CPU: assignments agree "
+        f"{agree:.6f} (>= {EMA_AGREEMENT}); codebook rows no flip touches ({2048 - touched}) "
+        f"within {rel:.2e} of its scale (<= {EMA_REL})")
+    if agree < EMA_AGREEMENT or not rel <= EMA_REL:
+        raise AssertionError("the EMA step on the card disagrees with the CPU's")
+
+    t2 = train_quantizer("semantic_m", c["dir16"], outdir, batch_vectors=VQ_BATCH_VECTORS,
+                         weights="random", device=dev)
+    with open(os.path.join(outdir, "processed_files.json")) as f:
+        processed2 = json.load(f)["files"]
+    untrained = st["segments"] - st["segments_trained"]
+    say(f"[6b] second call on the same outdir: resumed at step {t2.steps}, read "
+        f"{t2.stats['files_read']} files (the ones the first call did not train whole: "
+        f"{len(files) - len(processed)}), encoded {t2.stats['segments']} segments (the first "
+        f"call's untrained ones: {untrained} of {st['segments']}), {len(processed2)} recorded")
+    if (t2.steps != t1.steps or t2.stats["files_read"] != len(files) - len(processed)
+            or t2.stats["segments"] != untrained or processed2 != processed):
+        raise AssertionError("quantizer training did not resume where it stopped")
+
+    diag = compare_real_vs_random(x.cpu().numpy(), t1.codebook, device=dev)
+    say(f"[6b] cluster diagnostics of the trained codebook: separation {diag['separation']:.3f} "
+        f"(real p50 {diag['real']['p50']:.3f}, noise p50 {diag['random']['p50']:.3f}, "
+        f"active {diag['real']['active_frac']:.3f})")
+    del t1, t2, x
+    torch.cuda.empty_cache()
+    say(f"[6b] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches, res[T]
+
+
+GPT_TRAIN_STEPS = 10
+GPT_B, GPT_T = 8, 1024
+# "default" (TF32 matmuls) against "highest" (IEEE f32) over the same steps:
+# step 1's loss (at random init, where it sits near ln(53,376) at any
+# precision), the largest gap of any step's loss, and the relative gap of
+# the parameters' change, |d_default - d_highest| / |d_highest|. Each limit
+# lies between TF32's reading and a bf16 forward's (H100 80GB HBM3, 700 W:
+# 9.5e-7 / 4.8e-6, 1.4e-3 / 9.9e-2, 4.9e-3 / 3.0e-2); a bf16 forward must
+# exceed one of them. 9.5e-7 is one f32 ulp of a loss of 11.
+GPT_STEP1_ATOL = 3e-6
+GPT_LOSS_ATOL = 1e-2
+GPT_UPDATE_REL = 1.5e-2
+
+
+def _gpt_steps(cfg, params, dev, idx, targets, precision, bf16=False, ref_delta=None):
+    """``GPT_TRAIN_STEPS`` steps of a fresh ``TrainStep`` on one batch ->
+    (the TrainStep, losses, walls, the parameters' change, or its relative
+    gap to ``ref_delta``); ``bf16`` runs the steps under bf16 autocast."""
+    ts = TrainStep(cfg, params=params, device=dev, precision=precision)
+    start = [p.detach().clone() for p in ts.model.parameters()]
+    losses, walls = [], []
+    for _ in range(GPT_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.autocast("cuda", torch.bfloat16, enabled=bf16):
+            losses.append(float(ts.step(idx, targets)))  # float() waits for the step
+        walls.append(time.perf_counter() - t0)
+    delta = torch.cat([(p.detach() - p0).flatten()
+                       for p, p0 in zip(ts.model.parameters(), start)])
+    del start
+    if ref_delta is not None:
+        delta = ((delta - ref_delta).norm() / ref_delta.norm()).item()
+    return ts, losses, walls, delta
+
+
+def phase6c_gpt_training(dev, tmp):
+    """The GPT (12 x 768, block 1024, vocab 53,376) trained for
+    ``GPT_TRAIN_STEPS`` steps on one fixed batch under "default", held
+    against the same steps under "highest" (and a bf16 forward, which the
+    check must catch); its store decodes the same greedy tokens as the model
+    in memory."""
+    t_phase = time.perf_counter()
+    cfg = GPTConfig()
+    params, _ = get_semantic_gpt_params("random", 0, "gpt_semantic_s_en", cfg.vocab_size)
+    rng = np.random.default_rng(0)
+    idx = rng.integers(0, cfg.vocab_size, (GPT_B, GPT_T))
+    targets = np.roll(idx, -1, axis=1)
+    targets[:, -1] = -1
+    hi, loss_hi, _, delta_hi = _gpt_steps(cfg, params, dev, idx, targets, "highest")
+    del hi
+    _, loss_bf, _, rel_bf = _gpt_steps(cfg, params, dev, idx, targets, "default", bf16=True,
+                                       ref_delta=delta_hi)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ts, losses, walls, rel = _gpt_steps(cfg, params, dev, idx, targets, "default",
+                                        ref_delta=delta_hi)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    del delta_hi
+    step_s = statistics.median(walls[1:])
+    gap = max(abs(a - b) for a, b in zip(losses, loss_hi))
+    gap_bf = max(abs(a - b) for a, b in zip(loss_bf, loss_hi))
+    say(f"[6c] TrainStep B={GPT_B} x T={GPT_T}, 'default': losses "
+        f"{' '.join(f'{v:.4f}' for v in losses)}; median step {step_s * 1e3:.1f} ms (first "
+        f"{walls[0] * 1e3:.1f}), {GPT_B * GPT_T / step_s:.0f} tokens/s, peak {peak:.2f} GiB")
+    step1, step1_bf = abs(losses[0] - loss_hi[0]), abs(loss_bf[0] - loss_hi[0])
+    say(f"[6c] against 'highest' over the {GPT_TRAIN_STEPS} steps: step 1 |loss gap| "
+        f"{step1:.3e} (<= {GPT_STEP1_ATOL}), largest {gap:.3e} (<= {GPT_LOSS_ATOL}), "
+        f"parameter change {rel:.3e} relative (<= {GPT_UPDATE_REL}); a bf16 forward: step 1 "
+        f"{step1_bf:.3e}, largest {gap_bf:.3e}, parameter change {rel_bf:.3e}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the GPT's loss did not fall: {losses}")
+
+    def within(s1, g, r):
+        return s1 <= GPT_STEP1_ATOL and g <= GPT_LOSS_ATOL and r <= GPT_UPDATE_REL
+
+    if not within(step1, gap, rel):
+        raise AssertionError(f"training under 'default' left 'highest''s: step 1 {step1}, "
+                             f"loss gap {gap}, parameter change {rel}")
+    if within(step1_bf, gap_bf, rel_bf):
+        raise AssertionError("the check against 'highest' passes a bf16 forward too")
+
+    store = os.path.join(tmp, "gpt_store")
+    tree = gpt_to_numpy(ts.model)
+    validate_tree(tree, "gpt_semantic_s_en")
+    save_params(os.path.join(store, "gpt_semantic_s_en.npz"), tree)
+    loaded, lcfg = get_semantic_gpt_params(store, 0, "gpt_semantic_s_en", cfg.vocab_size)
+    sampler = GPTSampler(_module_from_state(GPT, lcfg, gpt_from_numpy(loaded), dev,
+                                            torch.float32))
+    prompt = idx[0, :100]
+    reset_counts()
+    got = sampler.generate(prompt, max_new_tokens=64, top_k=1)
+    counts = {k.__name__: k.launches for k in (decode_attention, decode_qkv, decode_ffn)}
+    ref = GPTSampler(ts.model).generate(prompt, max_new_tokens=64, top_k=1)
+    say(f"[6c] the trained GPT through gpt_to_numpy -> save_params -> weights=<dir>: greedy "
+        f"tokens {'equal' if np.array_equal(got, ref) else 'DIFFERENT'} to the model in "
+        f"memory's over 64 steps; kernel launches of the store's sampler: {counts}")
+    if not np.array_equal(got, ref):
+        raise AssertionError("the trained GPT's store decodes other greedy tokens")
+    for name, n in counts.items():
+        if n < 1:
+            raise AssertionError(f"kernel {name} was not launched by the trained GPT's sampler")
+    del ts, sampler
+    torch.cuda.empty_cache()
+    say(f"[6c] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of phase 4e's corpus")
@@ -1403,7 +1855,8 @@ def main():
         res.update(phase3e_flash_norel(dev))
     with tempfile.TemporaryDirectory() as tmp:
         counts, device_rtfx = phase4_main_path(dev, tmp)
-        phase5_goldens(dev, tmp)
+        ids_s0 = phase5_goldens(dev, tmp)
+        phase6a_converters(dev, tmp, ids_s0)
         counts["flash_attention_relkey"], at = phase4b_semantic_m(dev, tmp)
         phase5b_semantic_m_goldens(dev, tmp, at)
         del at
@@ -1413,9 +1866,12 @@ def main():
         phase5d_semantic_s_goldens(dev, tmp, at)
         del at
         torch.cuda.empty_cache()
-        phase4e_corpus(dev, tmp, args.seed, device_rtfx)
+        c = phase4e_corpus(dev, tmp, args.seed, device_rtfx)
         phase5e_corpus_goldens(dev, tmp)
         torch.cuda.empty_cache()
+        counts["flash_attention_relkey_vq"], res["flash_attention_relkey_vq"] = \
+            phase6b_quantizer(dev, tmp, c)
+        phase6c_gpt_training(dev, tmp)
     decode_counts = phase4c_decode(dev)
     phase5c_decode_goldens(dev)
     say(f"[4c] K2 launches in the acoustic decoder: {decode_counts.pop('lstm_layer')}")
@@ -1441,6 +1897,10 @@ def main():
          "audiotoken_tpu/ops/decode_step_fused.py:131"),
         # K4 again, in its no-rel masked form on the semantic_s path
         ("flash_attention_norel", "flash_attention_norel",
+         "audiotoken_tpu_torch/csrc/flash_attention.cu",
+         "audiotoken_tpu/ops/flash_attention.py:519"),
+        # K4 again, at the 10 s segments (12 s bucket) of quantizer training
+        ("flash_attention_relkey_vq", "flash_attention_relkey_vq",
          "audiotoken_tpu_torch/csrc/flash_attention.cu",
          "audiotoken_tpu/ops/flash_attention.py:519"),
     ]

@@ -27,6 +27,7 @@ from audiotoken_tpu_torch.runtime.precision import get_policy
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 import verify_tpu_parity as parity  # noqa: E402
 from golden_cases import battery  # noqa: E402
+from test_torch_offline import offline  # noqa: E402
 
 SR = 24_000
 N = 31_234  # 1.3 s, not a multiple of the 320-sample hop: bucket 36000
@@ -164,10 +165,12 @@ def test_default_device_is_cuda():
         AcousticEncoder(weights="random")
 
 
-def test_later_slices_raise(port_api, wav_path):
-    # semantic_s has arrived (tests/test_torch_semantic_s.py); the converters
-    # behind weights="artifacts" have not
-    with pytest.raises(NotImplementedError, match="converters"):
+def test_later_slices_raise(port_api, wav_path, monkeypatch, tmp_path):
+    # semantic_s has arrived (tests/test_torch_semantic_s.py), and so have
+    # the converters behind weights="artifacts" (tests/test_torch_convert.py):
+    # with nothing staged and no hub, the default weights name the directory
+    offline(monkeypatch, tmp_path)
+    with pytest.raises(FileNotFoundError, match="AUDIOTOKEN_ARTIFACTS"):
         AudioToken(Tokenizers.semantic_s, device="cpu").load_encoder()
     # bytes input has arrived (the native libav decoder): it answers
     np.testing.assert_array_equal(port_api.encode(Path(wav_path).read_bytes()),

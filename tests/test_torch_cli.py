@@ -93,8 +93,12 @@ def test_default_device_is_cuda(wavs, tmp_path):
 
 
 def test_convert_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="converters"):
-        main(["convert", "--model", "acoustic", "--src", "x.pt", "--out", str(tmp_path)])
+    """convert has arrived (tests/test_torch_convert.py): a missing
+    checkpoint raises, and nothing is written."""
+    with pytest.raises(FileNotFoundError):
+        main(["convert", "--model", "acoustic", "--src", str(tmp_path / "x.pt"),
+              "--out", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
 
 
 def test_bench_on_the_cpu(capsys):

@@ -223,7 +223,7 @@ def _attn_inputs(dev, B, H, T, seed=0):
 
 @pytest.mark.parametrize("has_mask", [True, False], ids=["mask", "nomask"])
 @pytest.mark.parametrize("has_rel", [True, False], ids=["rel", "norel"])
-@pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129, 600, 1499, 1500])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129, 500, 600, 1499, 1500])
 def test_flash_attention_matches_plain(dev, T, has_rel, has_mask):
     q, k, v, E = _attn_inputs(dev, 2, 3, T, seed=T)
     E = E if has_rel else None
@@ -238,6 +238,32 @@ def test_flash_attention_matches_plain(dev, T, has_rel, has_mask):
     ref = flash_attention_relkey_plain(q, k, v, E, mask)
     assert out.shape == ref.shape == (2, 3, T, 64)
     assert torch.allclose(out, ref, atol=ATOL, rtol=0), (out - ref).abs().max().item()
+
+
+def test_flash_attention_quantizer_training_shape(dev):
+    """semantic_m's 10 s segments of quantizer training: T = 500, a tail
+    query tile (500 is not a multiple of 128), rows cut short by the mask."""
+    q, k, v, E = _attn_inputs(dev, 8, 16, 500, seed=500)
+    mask = torch.ones((8, 500), device=dev)
+    mask[3, 377:] = 0.0
+    mask[6, 129:] = 0.0
+    out = flash_attention_relkey(q, k, v, E, mask)
+    torch.cuda.synchronize()
+    ref = flash_attention_relkey_plain(q, k, v, E, mask)
+    assert torch.allclose(out, ref, atol=ATOL, rtol=0), (out - ref).abs().max().item()
+
+
+def test_semantic_m_features_run_the_kernel(dev):
+    """``features`` (quantizer training's call) launches K4 once a block and
+    gives the CPU path's features."""
+    enc = Wav2VecBertEncoder(weights="random", seed=0, device=dev)
+    x = (np.random.default_rng(3).standard_normal((2, 16_000)) * 0.2).astype(np.float32)
+    before = flash_attention_relkey.launches
+    feats, n = enc.features(x)
+    assert flash_attention_relkey.launches - before == 19
+    ref, n_ref = Wav2VecBertEncoder(weights="random", seed=0, device="cpu").features(x)
+    assert n == n_ref and feats.shape == ref.shape
+    assert torch.allclose(feats.cpu(), ref, atol=1e-3, rtol=1e-3)
 
 
 def test_flash_attention_all_masked_row(dev):

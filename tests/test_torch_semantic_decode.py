@@ -30,6 +30,7 @@ from audiotoken_tpu_torch.decoders import _SemanticDecoderBase
 from audiotoken_tpu_torch.io.wavfile import write_wav
 from audiotoken_tpu_torch.nn.bark_fine import BarkFineConfig
 from audiotoken_tpu_torch.nn.gpt import GPTConfig
+from test_torch_offline import offline
 
 VOCAB = SemanticDecoderConfig().vocab.vocab_size
 GPT_TINY = dict(block_size=512, vocab_size=VOCAB, n_layer=1, n_head=2, n_embd=32)
@@ -176,7 +177,7 @@ def test_random_params_bitwise_equal(seed):
         np.testing.assert_array_equal(_leaves(port)[k], v, err_msg=k)
 
 
-def test_converted_store_loads(tmp_path):
+def test_converted_store_loads(tmp_path, monkeypatch):
     tree = jax_init_gpt(np.random.default_rng(1), JaxGPTConfig(**GPT_TINY))
     jax_save_params(str(tmp_path / "gpt_semantic_m_hi.npz"), tree)
     bark = jax_init_bark(np.random.default_rng(2), JaxBarkFineConfig(**BARK_TINY))
@@ -190,5 +191,6 @@ def test_converted_store_loads(tmp_path):
         np.testing.assert_array_equal(_leaves(got)[k], v, err_msg=k)
     with pytest.raises(FileNotFoundError):
         port_weights.get_bark_fine_params(str(tmp_path / "none"), 0)
-    with pytest.raises(NotImplementedError, match="artifacts"):
+    offline(monkeypatch, tmp_path / "none")  # weights="artifacts" with nothing staged
+    with pytest.raises(FileNotFoundError, match="AUDIOTOKEN_ARTIFACTS"):
         port_weights.get_semantic_gpt_params("artifacts", 0, "gpt_semantic_m_hi", VOCAB)

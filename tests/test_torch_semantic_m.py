@@ -25,6 +25,7 @@ from audiotoken_tpu_torch.io.wavfile import write_wav
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 import verify_tpu_parity as parity  # noqa: E402
 from golden_cases import battery  # noqa: E402
+from test_torch_offline import offline  # noqa: E402
 
 SR = 16_000
 N = 20_800  # 1.3 s: bucket 24000
@@ -165,12 +166,13 @@ def test_battery_seed0_golden(port_enc):
     assert not bad, bad
 
 
-def test_refusals(audio):
+def test_refusals(audio, monkeypatch, tmp_path):
     with pytest.raises(NotImplementedError, match="TPU bf16x3"):
         Wav2VecBertEncoder(weights="random", device="cpu", precision="mixed")
     with pytest.raises(NotImplementedError, match="bfloat16"):
         Wav2VecBertEncoder(weights="random", device="cpu", precision="bfloat16")
-    with pytest.raises(NotImplementedError, match="converters"):
+    offline(monkeypatch, tmp_path)  # weights="artifacts" with nothing staged
+    with pytest.raises(FileNotFoundError, match="AUDIOTOKEN_ARTIFACTS"):
         Wav2VecBertEncoder(device="cpu")
 
 

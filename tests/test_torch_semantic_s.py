@@ -28,6 +28,7 @@ from audiotoken_tpu_torch.runtime.profiling import StageTimers, profile_trace
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 import verify_tpu_parity as parity  # noqa: E402
 from golden_cases import api_clips, battery  # noqa: E402
+from test_torch_offline import offline  # noqa: E402
 
 SR = 16_000
 N = 20_800  # 1.3 s: bucket 24000
@@ -194,10 +195,11 @@ def test_api_golden_clips(port_api, tmp_path):
         assert (toks == ref).mean() >= parity.THRESH, name
 
 
-def test_refusals_and_limits(port_enc):
+def test_refusals_and_limits(port_enc, monkeypatch, tmp_path):
     with pytest.raises(NotImplementedError, match="f32"):
         HubertEncoder(weights="random", device="cpu", precision="bfloat16")
-    with pytest.raises(NotImplementedError, match="converters"):
+    offline(monkeypatch, tmp_path)  # weights="artifacts" with nothing staged
+    with pytest.raises(FileNotFoundError, match="AUDIOTOKEN_ARTIFACTS"):
         HubertEncoder(device="cpu")
     with pytest.raises(ValueError, match="attn_impl"):
         HubertEncoder(weights="random", device="cpu", attn_impl="sdpa")

@@ -20,6 +20,7 @@ from audiotoken_tpu_torch.weights import (
     get_w2vbert_params,
     w2vbert_from_numpy,
 )
+from test_torch_offline import offline
 
 
 def _leaves(tree):
@@ -76,8 +77,9 @@ def test_bridge_layout():
     np.testing.assert_array_equal(codebooks.numpy(), params["codebooks"])
 
 
-def test_unavailable_sources_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="converters"):
+def test_unavailable_sources_raise(tmp_path, monkeypatch):
+    offline(monkeypatch, tmp_path)  # weights="artifacts" with nothing staged
+    with pytest.raises(FileNotFoundError, match="AUDIOTOKEN_ARTIFACTS"):
         get_acoustic_params("artifacts")
     with pytest.raises(FileNotFoundError):
         get_acoustic_params(str(tmp_path))
@@ -121,8 +123,9 @@ def test_w2vbert_bridge_layout():
                                   layer["attn"]["distance_embedding"])
 
 
-def test_w2vbert_unavailable_sources_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="converters"):
+def test_w2vbert_unavailable_sources_raise(tmp_path, monkeypatch):
+    offline(monkeypatch, tmp_path)  # weights="artifacts" with nothing staged
+    with pytest.raises(FileNotFoundError, match="AUDIOTOKEN_ARTIFACTS"):
         get_w2vbert_params("artifacts")
     with pytest.raises(FileNotFoundError, match="w2vbert_vq"):
         get_w2vbert_params(str(tmp_path))
