@@ -52,7 +52,10 @@ class AudioToken:
             decoders' ``gpt_semantic_*.npz`` and ``bark_fine.npz``), as
             ``python -m audiotoken_tpu_torch.cli convert`` writes it.
         precision: ``"highest"`` (IEEE f32, token parity), ``"high"`` or
-            ``"default"`` (TF32 allowed), ``"bfloat16"`` (acoustic only).
+            ``"default"`` (TF32 in cuBLAS and cuDNN), ``"bfloat16"`` (bf16
+            where the JAX package computes in bf16, TF32 elsewhere);
+            semantic_m also takes ``"mixed"``: ``"high"`` with the stages
+            of ``runtime/precision.py:W2VBERT_MIXED_OVERRIDES`` in IEEE f32.
     """
 
     def __init__(

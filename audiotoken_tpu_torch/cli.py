@@ -33,7 +33,9 @@ def _add_common(p):
     p.add_argument("--precision", default="highest",
                    choices=["highest", "mixed", "high", "default", "bfloat16"],
                    help="'highest' = IEEE f32, token parity with the reference; "
-                        "'high' and 'default' allow TF32; 'bfloat16' is acoustic only")
+                        "'high' and 'default' allow TF32; 'bfloat16' computes in bf16 "
+                        "where the JAX package does; 'mixed' (semantic_m encode only) "
+                        "= 'high' with the measured stages in IEEE f32")
     p.add_argument("--device", default="cuda",
                    help="torch device: 'cuda' (default; raises without a GPU) or 'cpu'")
 
@@ -170,6 +172,11 @@ def main(argv=None):
     b.set_defaults(func=cmd_bench)
 
     args = p.parse_args(argv)
+    if getattr(args, "precision", None) == "mixed" and (
+            args.tokenizer != Tokenizers.semantic_m.value or args.cmd == "detokenize"):
+        # refused before any weights load
+        p.error("--precision mixed is a semantic_m encoder mode; use 'highest', 'high', "
+                "'default' or 'bfloat16'")
     return args.func(args)
 
 

@@ -11,6 +11,11 @@ the corpus executor (``runtime/executor.py``) overlaps the next batch's
 host work with it. ``accepts_int16`` tells the executor that raw PCM16
 may be sent; ``int16_device_transform`` that the host transform has a
 device equivalent for int16 input.
+
+Every encoder takes the JAX package's precision policies ("highest",
+"high", "default", "bfloat16"; ``runtime/precision.py``) and ``buckets``,
+a grid of padded lengths in samples (the default grid when None);
+``Wav2VecBertEncoder`` also takes "mixed" and ``stage_overrides``.
 """
 
 import math
@@ -29,7 +34,12 @@ from .nn.rvq import ResidualVQ, RVQConfig
 from .nn.seanet import SeanetConfig, SeanetEncoder
 from .ops.lookup import nearest_centroid
 from .runtime.bucketing import default_buckets, pad_to_bucket
-from .runtime.precision import get_policy
+from .runtime.precision import (
+    W2VBERT_MIXED_OVERRIDES,
+    StagePrecision,
+    get_policy,
+    resolve_mixed,
+)
 from .weights import (
     acoustic_from_numpy,
     get_acoustic_params,
@@ -142,13 +152,14 @@ class AcousticEncoder:
         precision: str = "highest",
         seed: int = 0,
         device="cuda",
+        buckets=None,
     ):
         self.device = resolve_device(device)
         self.config = config
         self.seanet_cfg = SeanetConfig()
         self.rvq_cfg = RVQConfig()
         self.num_q = self.rvq_cfg.num_quantizers_for_bandwidth(config.bandwidth)
-        self.policy = get_policy(precision)
+        self.set_precision(precision)
         self.hop = self.seanet_cfg.hop_length  # 320 -> 75 fps at 24 kHz
 
         state, codebooks = acoustic_from_numpy(get_acoustic_params(weights, seed))
@@ -156,10 +167,14 @@ class AcousticEncoder:
         self.seanet.load_state_dict(state)
         self.seanet.to(self.device).eval()
         self.quantizer = ResidualVQ(codebooks, self.num_q).to(self.device)
-        self.buckets = default_buckets(config.model_sample_rate, self.hop)
+        self.buckets = buckets or default_buckets(config.model_sample_rate, self.hop)
         # Larger batches run as sub-batches of this many rows; 32 x 30 s is
         # the batch the JAX package sized its device memory for.
         self.max_device_batch = 32
+
+    def set_precision(self, precision: str):
+        """Change the precision policy without loading the weights again."""
+        self.policy = get_policy(precision)
 
     def _forward(self, audio: torch.Tensor) -> torch.Tensor:
         """[B, T] f32 or int16 on the device -> codes [B, num_q, T'] int16."""
@@ -229,15 +244,11 @@ class HubertEncoder:
         device="cuda",
         quantize: bool = True,
         attn_impl: Optional[str] = None,
+        buckets=None,
     ):
-        if precision in ("mixed", "bfloat16"):
-            raise NotImplementedError(
-                f'precision="{precision}": semantic_s runs in f32 (K4 takes f32); use '
-                '"highest", "high" or "default"'
-            )
         self.device = resolve_device(device)
         self.config = config
-        self.policy = get_policy(precision)
+        self.set_precision(precision)
         self.quantize = quantize
         self.model_cfg = HubertConfig() if attn_impl is None else HubertConfig(attn_impl=attn_impl)
 
@@ -249,7 +260,7 @@ class HubertEncoder:
         model.load_state_dict(state, assign=True)
         self.model = model.to(self.device).eval().requires_grad_(False)
         self.centroids = torch.from_numpy(centroids).to(self.device)
-        self.buckets = default_buckets(config.model_sample_rate, 320)
+        self.buckets = buckets or default_buckets(config.model_sample_rate, 320)
         # Larger batches run as sub-batches of this many rows; 32 x 30 s fits
         # the 80 GB card in both attention forms (PERF.md).
         self.max_device_batch = 32
@@ -260,6 +271,10 @@ class HubertEncoder:
                         reversed(self.model_cfg.conv_stride)):
             m = (m - 1) * s + k
         self._min_samples = m
+
+    def set_precision(self, precision: str):
+        """Change the precision policy without loading the weights again."""
+        self.policy = get_policy(precision)
 
     def _forward(self, audio: torch.Tensor, mask: torch.Tensor, quantize: bool) -> torch.Tensor:
         """[B, N] f32 (normalised) or int16 and a [B] lengths or [B, N] mask
@@ -274,7 +289,8 @@ class HubertEncoder:
                 mu = (a * mask).sum(dim=-1, keepdim=True) / n
                 var = ((a - mu).square() * mask).sum(dim=-1, keepdim=True) / n
                 audio = (a - mu) / torch.sqrt(var + 1e-7) * mask
-            feats = self.model(audio, mask)
+            # under "bfloat16" the first conv and its norm take bf16 input
+            feats = self.model(audio.to(self.policy.compute_dtype), mask)
             if not quantize:
                 return feats
             feats = F.layer_norm(feats, feats.shape[-1:], eps=1e-5)  # affine-free
@@ -328,21 +344,12 @@ class Wav2VecBertEncoder:
         seed: int = 0,
         device="cuda",
         quantize: bool = True,
+        buckets=None,
+        stage_overrides=None,
     ):
-        if precision == "mixed":
-            raise NotImplementedError(
-                'precision="mixed": its stage map was measured on TPU bf16x3 '
-                "numerics and is re-derived on Hopper in a later PR; use "
-                '"highest"'
-            )
-        if precision == "bfloat16":
-            raise NotImplementedError(
-                'precision="bfloat16": semantic_m runs in f32 until a bf16 '
-                'attention kernel is written; use "highest"'
-            )
         self.device = resolve_device(device)
         self.config = config
-        self.policy = get_policy(precision)
+        self.set_precision(precision, stage_overrides)
         self.quantize = quantize
         self.fbank_cfg = FbankConfig()
         self.model_cfg = W2VBertConfig()
@@ -355,13 +362,24 @@ class Wav2VecBertEncoder:
         model.load_state_dict(state, assign=True)
         self.model = model.to(self.device).eval().requires_grad_(False)
         self.codebook = torch.from_numpy(codebook).to(self.device)
-        self.buckets = default_buckets(config.model_sample_rate, 320)
+        self.buckets = buckets or default_buckets(config.model_sample_rate, 320)
         # Larger batches run as sub-batches of this many rows: K4 keeps the
         # attention's memory linear in T, so 32 x 30 s fits.
         self.max_device_batch = 32
         # one 50 Hz token = 2 fbank frames: frame_length + hop_length
         # samples (560 = 35 ms)
         self._min_samples = self.fbank_cfg.frame_length + self.fbank_cfg.hop_length
+
+    def set_precision(self, precision: str, stage_overrides=None):
+        """Change the precision policy and the stage map without loading
+        the weights again. "mixed" is "high" with the stages of
+        ``W2VBERT_MIXED_OVERRIDES`` at "highest"; explicit
+        ``stage_overrides`` win."""
+        precision, stage_overrides = resolve_mixed(
+            precision, stage_overrides, W2VBERT_MIXED_OVERRIDES)
+        self.policy = get_policy(precision)
+        # per-stage precision, passed down the forward (runtime/precision.py)
+        self.stage_prec = StagePrecision(self.policy, stage_overrides)
 
     def _forward(self, audio: torch.Tensor, mask: torch.Tensor,
                  pad_to_multiple_of: int, quantize: bool) -> torch.Tensor:
@@ -372,12 +390,16 @@ class Wav2VecBertEncoder:
             if audio.dtype == torch.int16:
                 # /2^15 is exact, so int16 input gives the f32 path's tokens
                 audio = audio.float() * (1.0 / 32768.0)
-            proc = fbank_features(audio, mask, self.fbank_cfg, pad_to_multiple_of)
-            feats = self.model(proc["input_features"], proc["attention_mask"])
+            P = self.stage_prec
+            proc = fbank_features(audio, mask, self.fbank_cfg, pad_to_multiple_of,
+                                  precision=P("fbank"))
+            feats = self.model(proc["input_features"].to(self.policy.compute_dtype),
+                               proc["attention_mask"], P)
             if not quantize:
                 return feats
             feats = F.layer_norm(feats, feats.shape[-1:], eps=1e-5)  # affine-free
-            return nearest_centroid(feats, self.codebook).to(torch.int16)
+            with P.numerics("vq"):
+                return nearest_centroid(feats, self.codebook).to(torch.int16)
 
     def _run(self, input_batch, attention_mask, pad_to_multiple_of: int, quantize: bool):
         x, m, n = _to_device(self, input_batch, attention_mask, "Wav2VecBertEncoder")

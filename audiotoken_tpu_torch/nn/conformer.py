@@ -11,6 +11,14 @@ The linears are cuBLAS matmuls and the depthwise conv is ``F.conv1d`` with
 plain version runs for CPU tensors. The numpy initialiser makes the same
 draws, in the same order, as the JAX package's, so ``weights="random"``
 gives both packages bit-identical parameters.
+
+The forward takes a precision: a policy name or a per-stage map
+(``runtime/precision.py:StagePrecision``), passed down explicitly as the
+JAX package passes ``P``. Each stage's products run under that stage's
+TF32 switches; the depthwise conv runs in IEEE f32 under every setting,
+as the JAX package's shift-sum has no precision to lower. bf16 input (the
+``bfloat16`` policy) takes the feature projection's LayerNorm in bf16, as
+the JAX package computes it, and is f32 from that norm's affine on.
 """
 
 from dataclasses import dataclass
@@ -22,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_attention_relkey
+from ..runtime.precision import as_stage_precision, bf16_norm, tf32_numerics
 
 
 @dataclass(frozen=True)
@@ -56,8 +65,11 @@ class FeedForward(nn.Module):
         self.inp = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.out = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.out(F.silu(self.inp(x)))
+    def forward(self, x: torch.Tensor, P) -> torch.Tensor:
+        with P.numerics("ffn_in"):
+            h = F.silu(self.inp(x))
+        with P.numerics("ffn_out"):
+            return self.out(h)
 
 
 class RelKeyAttention(nn.Module):
@@ -73,20 +85,23 @@ class RelKeyAttention(nn.Module):
         self.out = nn.Linear(H, H)
         self.distance_embedding = nn.Parameter(torch.zeros(cfg.num_positions, cfg.head_size))
 
-    def forward(self, x: torch.Tensor, frame_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frame_mask: Optional[torch.Tensor], P) -> torch.Tensor:
         B, T, H = x.shape
         nh, dh = self.cfg.num_attention_heads, self.cfg.head_size
 
         def heads(t):  # [B, T, H] -> [B, nh, T, dh], contiguous for K4
             return t.reshape(B, T, nh, dh).transpose(1, 2).contiguous()
 
+        with P.numerics("attn_qkv"):
+            q, k, v = heads(self.q(x)), heads(self.k(x)), heads(self.v(x))
+        # K4 is 3xTF32 under every setting of "attn_kernel"
         a = flash_attention_relkey(
-            heads(self.q(x)), heads(self.k(x)), heads(self.v(x)),
-            self.distance_embedding, frame_mask,
+            q, k, v, self.distance_embedding, frame_mask,
             left=self.cfg.left_max_position_embeddings,
             right=self.cfg.right_max_position_embeddings,
         )
-        return self.out(a.transpose(1, 2).reshape(B, T, H))
+        with P.numerics("attn_out"):
+            return self.out(a.transpose(1, 2).reshape(B, T, H))
 
 
 class ConvModule(nn.Module):
@@ -102,15 +117,19 @@ class ConvModule(nn.Module):
         self.dw_layer_norm = nn.LayerNorm(H, eps=cfg.layer_norm_eps)
         self.pw2 = nn.Linear(H, H, bias=False)
 
-    def forward(self, x: torch.Tensor, frame_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frame_mask: Optional[torch.Tensor], P) -> torch.Tensor:
         h = self.layer_norm(x)
         if frame_mask is not None:
             h = h * frame_mask[:, :, None]
-        h = F.glu(self.pw1(h), dim=-1)
+        with P.numerics("conv"):
+            h = F.glu(self.pw1(h), dim=-1)
         K = self.dw_weight.shape[-1]
-        h = F.conv1d(F.pad(h.transpose(1, 2), (K - 1, 0)), self.dw_weight,
-                     groups=h.shape[-1]).transpose(1, 2)
-        return self.pw2(F.silu(self.dw_layer_norm(h)))
+        with tf32_numerics(False):  # the JAX shift-sum's exact f32, under every setting
+            h = F.conv1d(F.pad(h.transpose(1, 2), (K - 1, 0)), self.dw_weight,
+                         groups=h.shape[-1]).transpose(1, 2)
+        h = F.silu(self.dw_layer_norm(h))
+        with P.numerics("conv"):
+            return self.pw2(h)
 
 
 class ConformerBlock(nn.Module):
@@ -126,12 +145,13 @@ class ConformerBlock(nn.Module):
         self.ffn2 = FeedForward(cfg)
         self.final_layer_norm = nn.LayerNorm(H, eps=eps)
 
-    def forward(self, x: torch.Tensor, frame_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        x = self.ffn1(self.ffn1_layer_norm(x)) * 0.5 + x
-        x = self.attn(self.self_attn_layer_norm(x), frame_mask) + x
-        x = x + self.conv(x, frame_mask)
-        x = self.ffn2(self.ffn2_layer_norm(x)) * 0.5 + x
+    def forward(self, x: torch.Tensor, frame_mask: Optional[torch.Tensor], P) -> torch.Tensor:
+        x = self.ffn1(self.ffn1_layer_norm(x), P) * 0.5 + x
+        x = self.attn(self.self_attn_layer_norm(x), frame_mask, P) + x
+        x = x + self.conv(x, frame_mask, P)
+        x = self.ffn2(self.ffn2_layer_norm(x), P) * 0.5 + x
         return self.final_layer_norm(x)
+
 
 
 class W2VBertFeatures(nn.Module):
@@ -148,14 +168,23 @@ class W2VBertFeatures(nn.Module):
         self.layers = nn.ModuleList(ConformerBlock(cfg) for _ in range(output_layer))
 
     def forward(self, input_features: torch.Tensor,
-                attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        h = self.projection(self.fp_layer_norm(input_features))
+                attention_mask: Optional[torch.Tensor], precision="highest") -> torch.Tensor:
+        """``precision``: a policy name or a ``StagePrecision``. bf16
+        ``input_features`` take the feature projection's LayerNorm in bf16."""
+        P = as_stage_precision(precision)
+        ln = self.fp_layer_norm
+        if input_features.dtype == torch.bfloat16:
+            h = bf16_norm(input_features, -1, ln.eps) * ln.weight + ln.bias
+        else:
+            h = ln(input_features)
+        with P.numerics("proj"):
+            h = self.projection(h)
         frame_mask = None
         if attention_mask is not None:
             frame_mask = attention_mask.float().contiguous()
             h = h * frame_mask[:, :, None]
         for layer in self.layers:
-            h = layer(h, frame_mask)
+            h = layer(h, frame_mask, P)
         return h
 
 

@@ -14,6 +14,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..runtime.precision import get_policy, tf32_numerics
+
 
 @dataclass(frozen=True)
 class FbankConfig:
@@ -100,9 +102,11 @@ def fbank_features(
     mask: torch.Tensor,
     cfg: FbankConfig = FbankConfig(),
     pad_to_multiple_of: int = 2,
+    precision="highest",
 ):
     """[B, N] waveform + [B, N] mask -> dict(input_features [B, F', M*stride],
-    attention_mask [B, F']), the reference processor's semantics."""
+    attention_mask [B, F']), the reference processor's semantics.
+    ``precision`` (a policy name) sets the TF32 switches of the mel product."""
     fold, mel = _fold_tensors(cfg, waveform.device)
     nbins = cfg.fft_length // 2 + 1
     L, hop = cfg.frame_length, cfg.hop_length
@@ -116,7 +120,8 @@ def fbank_features(
     # In f64 the result is the exact product of the f32 matrix.
     spec = torch.matmul(frames.double(), fold.double()).float()
     power = spec[..., :nbins] ** 2 + spec[..., nbins:] ** 2
-    melspec = torch.matmul(power, mel)
+    with tf32_numerics(get_policy(precision).allow_tf32):
+        melspec = torch.matmul(power, mel)
     features = torch.log(torch.clamp(melspec, min=cfg.mel_floor))
     num_frames = features.shape[1]
 

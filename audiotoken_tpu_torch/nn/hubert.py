@@ -20,6 +20,12 @@ form (``ops/flash_attention.py``; its plain version for CPU tensors),
 as a framing matmul (``_conv0_framed``) is a TPU lane-padding measure and
 is not carried over: the goldens hold with ``F.conv1d``. The numpy
 initialiser makes the same draws, in the same order, as the JAX package's.
+
+HuBERT has one precision (no stage map): the caller's policy sets the TF32
+switches for the whole forward. bf16 input (the ``bfloat16`` policy) runs
+the first conv on bf16 operands with f32 accumulation and a bf16 output,
+and its GroupNorm statistics in bf16, as the JAX package computes them;
+everything from that norm's affine on is f32.
 """
 
 from dataclasses import dataclass
@@ -32,6 +38,7 @@ from torch import nn
 
 from ..ops.attention import multihead_attention, padding_bias
 from ..ops.flash_attention import flash_attention_relkey
+from ..runtime.precision import bf16_norm, tf32_numerics
 
 
 @dataclass(frozen=True)
@@ -75,11 +82,25 @@ class ConvExtractor(nn.Module):
         self.group_norm = nn.GroupNorm(cfg.conv_dim[0], cfg.conv_dim[0], eps=1e-5)
 
     def forward(self, audio: torch.Tensor) -> torch.Tensor:
+        """[B, N] f32, or bf16 for the bf16 form of the first conv and norm
+        -> [B, T', 512] f32."""
         h = audio[:, None, :]
         for i, conv in enumerate(self.convs):
-            h = conv(h)
-            if i == 0:
-                h = self.group_norm(h)  # each channel over time
+            if i == 0 and h.dtype == torch.bfloat16:
+                # bf16 operands, f32 accumulation, bf16 output: the products
+                # of bf16 values are exact in f32, so IEEE f32 on the
+                # rounded operands is that conv on any device
+                with tf32_numerics(False):
+                    h = F.conv1d(h.float(), conv.weight.bfloat16().float(),
+                                 stride=conv.stride).bfloat16()
+                if conv.bias is not None:
+                    h = h + conv.bias.bfloat16()
+                gn = self.group_norm
+                h = bf16_norm(h, -1, gn.eps) * gn.weight[:, None] + gn.bias[:, None]
+            else:
+                h = conv(h)
+                if i == 0:
+                    h = self.group_norm(h)  # each channel over time
             h = F.gelu(h)
         return h.transpose(1, 2)
 

@@ -87,6 +87,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
      PCM16 WAV cut to its own length, through ``encode_batch_files`` for
      every weight seed, against ``battery_acoustic.npz`` under the per-case
      acoustic contract.
+  5f. the precision ladder (``scripts/precision_ladder_torch.py``), run
+     after each tokenizer's golden phase (5, 5b, 5d) over that phase's
+     encoders, one per weight seed, switched from mode to mode without
+     drawing their weights again: acoustic and semantic_s under
+     ``highest``, ``high``, ``default`` and ``bfloat16``, semantic_m also
+     under ``mixed``; per seed the battery's worst exactness row, its probes
+     and the cases below the per-case contract, and the device RTFx at B=8
+     and 32 x 30 s of int16 PCM (median of 3 after a warm-up). It gates
+     that every ``highest`` line equals what the golden phase read, and
+     that ``mixed``'s lines equal ``highest``'s on every exactness row of
+     every seed; the other modes are measured, not gated. K1-K3 (acoustic)
+     and K4 (the semantic encoders) must launch during it. Then seed 0's
+     encoder built with ``buckets=`` one 12 s bucket must pad the
+     battery's 8 s rows to it and give the ids that the default grid gives
+     the rows padded to 12 s by hand.
 
   6a. the converters: an HF-named EnCodec 24 kHz checkpoint and an
      ``_orig_mod.`` nanoGPT one, built from the seed-0 random trees
@@ -146,11 +161,12 @@ import torch.nn.functional as F
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "scripts"))
 
+import precision_ladder_torch as ladder  # noqa: E402
 import profile_attn_micro_torch as micro  # noqa: E402
 import profile_corpus_torch as corpus  # noqa: E402
 from profile_hubert_torch import _union_s  # noqa: E402
 import verify_tpu_parity as parity  # noqa: E402  (numpy-only at import)
-from golden_cases import WEIGHT_SEEDS, api_clips, battery  # noqa: E402
+from golden_cases import CASE_NAMES, WEIGHT_SEEDS, api_clips, battery  # noqa: E402
 
 from audiotoken_tpu_torch import AudioToken, Tokenizers  # noqa: E402
 from audiotoken_tpu_torch import cli  # noqa: E402
@@ -560,17 +576,21 @@ def phase4_main_path(dev, tmp):
     return counts, rtfx
 
 
-def phase5_goldens(dev, tmp):
-    """The acoustic golden gate; returns the seed-0 battery codes."""
+def phase5_goldens(dev, tmp, keep):
+    """The acoustic golden gate; returns the seed-0 battery codes. ``keep``
+    gets each seed's encoder and battery line (for phase 5f)."""
     g = np.load(os.path.join(parity.GOLD, "battery_acoustic.npz"))
     audio, _lengths, names = battery(SR)
     failures = []
     for seed in WEIGHT_SEEDS:
-        ids = AcousticEncoder(weights="random", seed=seed, device=dev)(audio)
+        enc = keep.setdefault("encs", {})[seed] = AcousticEncoder(
+            weights="random", seed=seed, device=dev)
+        ids = enc(audio)
         if seed == 0:
             ids_s0 = ids
         ref = g[f"ids_s{seed}"]
         per_case = (ids.reshape(len(names), -1) == ref.reshape(len(names), -1)).mean(axis=1)
+        keep.setdefault("lines", {})[seed] = per_case
         for name, agree in zip(names, per_case):
             thresh = parity.case_thresh("acoustic", name)
             ok = agree >= thresh
@@ -697,19 +717,20 @@ def phase4b_semantic_m(dev, tmp):
     return n, at
 
 
-def phase5b_semantic_m_goldens(dev, tmp, at):
+def phase5b_semantic_m_goldens(dev, tmp, at, keep):
+    """The semantic_m golden gate; ``keep`` gets each seed's encoder and
+    battery line (for phase 5f)."""
     g = np.load(os.path.join(parity.GOLD, "battery_semantic_m.npz"))
     audio, lengths, names = battery(SR_M)
     failures = []
     for seed in WEIGHT_SEEDS:
-        enc = (at.encoder if seed == 0
-               else Wav2VecBertEncoder(weights="random", seed=seed, device=dev))
+        enc = keep.setdefault("encs", {})[seed] = (
+            at.encoder if seed == 0
+            else Wav2VecBertEncoder(weights="random", seed=seed, device=dev))
         ids = enc(audio, attention_mask=lengths)
-        if seed != 0:
-            del enc
-            torch.cuda.empty_cache()
         ref = g[f"ids_s{seed}"]
         per_case = (ids.reshape(len(names), -1) == ref.reshape(len(names), -1)).mean(axis=1)
+        keep.setdefault("lines", {})[seed] = per_case
         for name, agree in zip(names, per_case):
             if ("semantic_m", name) in parity.DEGENERATE_CASES:
                 ok, gate = parity.degenerate_ok(float(agree)), "binary: >= 0.9 or <= 0.1"
@@ -1242,26 +1263,21 @@ def phase4d_semantic_s(dev, tmp):
     return n, at, 8 * 30.0 / walls[default, 8]
 
 
-def _hubert_host_norm(audio, lengths):
-    """The host normalisation over each row's valid prefix, zeros after it."""
-    out = np.zeros_like(audio, np.float32)
-    for i, n in enumerate(lengths):
-        out[i, :n] = HubertEncoder.host_transform(audio[i, :n][None])[0]
-    return out
-
-
-def phase5d_semantic_s_goldens(dev, tmp, at):
+def phase5d_semantic_s_goldens(dev, tmp, at, keep):
+    """The semantic_s golden gate; ``keep`` gets each seed's encoder and
+    battery line (for phase 5f)."""
     g = np.load(os.path.join(parity.GOLD, "battery_semantic_s.npz"))
     audio, lengths, names = battery(SR_M)
-    audio = _hubert_host_norm(audio, lengths)
+    audio = ladder.hubert_host_norm(audio, lengths)
     failures = []
     for seed in WEIGHT_SEEDS:
-        enc = (at.encoder if seed == 0
-               else HubertEncoder(weights="random", seed=seed, device=dev))
+        enc = keep.setdefault("encs", {})[seed] = (
+            at.encoder if seed == 0
+            else HubertEncoder(weights="random", seed=seed, device=dev))
         ids = enc(audio, attention_mask=lengths)
-        del enc
         ref = g[f"ids_s{seed}"]
         per_case = (ids.reshape(len(names), -1) == ref.reshape(len(names), -1)).mean(axis=1)
+        keep.setdefault("lines", {})[seed] = per_case
         for name, agree in zip(names, per_case):
             thresh = parity.case_thresh("semantic_s", name)
             ok = agree >= thresh
@@ -1288,6 +1304,83 @@ def phase5d_semantic_s_goldens(dev, tmp, at):
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError("semantic_s golden gate failed: " + "; ".join(failures))
+
+PHASE_OF = {"acoustic": "5", "semantic_m": "5b", "semantic_s": "5d"}
+
+
+def phase5f_precision_ladder(dev, tok, keep):
+    """The precision ladder over ``keep``'s encoders (one a weight seed, from
+    the golden phase of ``tok``), and its gates; returns the ladder and the
+    launch counts of the phase."""
+    t_phase = time.perf_counter()
+    names = CASE_NAMES
+    encs = keep["encs"]
+    torch.cuda.synchronize()
+    reset_counts()
+    lad = ladder.run_ladder(tok, encs, batches=(8, 32), say=say, tag="[5f]")
+    kernels = ACOUSTIC_KERNELS if tok == "acoustic" else (flash_attention_relkey,)
+    counts = {k.__name__: k.launches for k in kernels}
+    say(f"[5f] {tok}: kernel launches during the ladder: {counts}")
+    failures = [f"{name} was not launched" for name, n in counts.items() if n < 1]
+    exact = ladder.exact_cases(tok, names)
+    for seed in encs:
+        line = lad["highest"]["lines"][seed]
+        if not np.array_equal(line, keep["lines"][seed]):
+            failures.append(f"highest s{seed}: {line} != phase {PHASE_OF[tok]}'s "
+                            f"{keep['lines'][seed]}")
+        if "mixed" in lad:
+            mixed = lad["mixed"]["lines"][seed]
+            moved = [names[i] for i in exact if mixed[i] != line[i]]
+            same_ids = all(np.array_equal(lad["mixed"]["ids"][seed][i],
+                                          lad["highest"]["ids"][seed][i]) for i in exact)
+            say(f"[5f] {tok} mixed s{seed}: exactness rows equal to highest's: "
+                f"{'yes' if not moved else 'no, ' + ', '.join(moved)}; ids equal: {same_ids}")
+            if moved:
+                failures.append(f"mixed s{seed} differs from highest on {moved}")
+    for mode, res in lad.items():
+        worst = min(s["worst"][1] for s in res["summary"].values())
+        probes = [s["probes"] for s in res["summary"].values() if s["probes"] is not None]
+        below = sum(len(s["below"]) for s in res["summary"].values())
+        say(f"[5f] {tok} {mode:8s}: worst exactness row {worst:.6f} over "
+            f"{len(encs)} seeds" + (f", probes {min(probes):.6f}-{max(probes):.6f}"
+                                    if probes else "")
+            + f", {below} seed-cases below the contract, RTFx "
+            + " / ".join(f"{r:.1f}" for r in res["rtfx"].values()) + " at B="
+            + " / ".join(map(str, res["rtfx"])))
+    failures += _check_buckets(dev, tok, encs)
+    say(f"[5f] {tok} phase wall {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError(f"precision ladder ({tok}) failed: " + "; ".join(failures))
+    return lad, counts
+
+
+def _check_buckets(dev, tok, encs):
+    """``buckets=`` on the card: seed 0's encoder built on a grid of one 12 s
+    bucket pads the battery's 8 s rows (which the default grid leaves
+    unpadded) to it, and gives the ids the default grid gives the rows
+    zero-padded to 12 s by hand: the same input, one a bucket of each grid.
+    (semantic_s's GroupNorm runs over the padding, as the reference's does,
+    so its ids depend on the bucket; the golden agreement is printed.)
+    -> failures."""
+    audio, lengths, names, golden = ladder.battery_inputs(tok)
+    grid = (12 * ladder.SAMPLE_RATE[tok],)
+    enc = type(encs[0])(weights="random", seed=0, device=dev, buckets=grid)
+    out, n_frames = enc.dispatch(audio, None if tok == "acoustic" else lengths)
+    ids = ladder.encode_battery(tok, enc, audio, lengths)
+    by_hand = np.pad(audio, ((0, 0), (0, grid[0] - audio.shape[-1])))
+    ref = ladder.encode_battery(tok, encs[0], by_hand, lengths)[..., :ids.shape[-1]]
+    below = ladder.below_contract(tok, names, ladder.agreement(ids, golden["ids_s0"]))
+    same = np.array_equal(ids, ref)
+    say(f"[5f] {tok} buckets={grid}: {out.shape[-1]} frames padded against {n_frames}; ids "
+        f"equal to the default grid's on the rows padded by hand: {same}; against the "
+        f"golden, below the contract: {', '.join(below) or 'none'}")
+    del enc
+    torch.cuda.empty_cache()
+    failures = [] if same else [f"buckets={grid}: ids differ from the hand-padded rows'"]
+    if out.shape[-1] <= n_frames:
+        failures.append(f"buckets={grid} did not pad: {out.shape[-1]} frames")
+    return failures
+
 
 class _SynchronousEncoder:
     """``enc`` whose ``dispatch`` waits for the device and returns host ids."""
@@ -1855,16 +1948,23 @@ def main():
         res.update(phase3e_flash_norel(dev))
     with tempfile.TemporaryDirectory() as tmp:
         counts, device_rtfx = phase4_main_path(dev, tmp)
-        ids_s0 = phase5_goldens(dev, tmp)
+        keep = {}
+        ids_s0 = phase5_goldens(dev, tmp, keep)
+        phase5f_precision_ladder(dev, "acoustic", keep)
+        del keep
         phase6a_converters(dev, tmp, ids_s0)
         counts["flash_attention_relkey"], at = phase4b_semantic_m(dev, tmp)
-        phase5b_semantic_m_goldens(dev, tmp, at)
-        del at
+        keep = {}
+        phase5b_semantic_m_goldens(dev, tmp, at, keep)
+        phase5f_precision_ladder(dev, "semantic_m", keep)
+        del at, keep
         torch.cuda.empty_cache()
         counts["flash_attention_norel"], at, device_rtfx["semantic_s"] = phase4d_semantic_s(
             dev, tmp)
-        phase5d_semantic_s_goldens(dev, tmp, at)
-        del at
+        keep = {}
+        phase5d_semantic_s_goldens(dev, tmp, at, keep)
+        phase5f_precision_ladder(dev, "semantic_s", keep)
+        del at, keep
         torch.cuda.empty_cache()
         c = phase4e_corpus(dev, tmp, args.seed, device_rtfx)
         phase5e_corpus_goldens(dev, tmp)

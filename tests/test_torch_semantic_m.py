@@ -167,10 +167,13 @@ def test_battery_seed0_golden(port_enc):
 
 
 def test_refusals(audio, monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="TPU bf16x3"):
-        Wav2VecBertEncoder(weights="random", device="cpu", precision="mixed")
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        Wav2VecBertEncoder(weights="random", device="cpu", precision="bfloat16")
+    # "mixed" and "bfloat16" are semantic_m modes (tests/test_torch_precision.py);
+    # an unknown policy or stage is refused before the weights are drawn
+    with pytest.raises(ValueError, match="unknown precision policy"):
+        Wav2VecBertEncoder(weights="random", device="cpu", precision="fast")
+    with pytest.raises(ValueError, match="unknown precision stage"):
+        Wav2VecBertEncoder(weights="random", device="cpu", precision="mixed",
+                           stage_overrides={"attention": "highest"})
     offline(monkeypatch, tmp_path)  # weights="artifacts" with nothing staged
     with pytest.raises(FileNotFoundError, match="AUDIOTOKEN_ARTIFACTS"):
         Wav2VecBertEncoder(device="cpu")

@@ -196,8 +196,10 @@ def test_api_golden_clips(port_api, tmp_path):
 
 
 def test_refusals_and_limits(port_enc, monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="f32"):
-        HubertEncoder(weights="random", device="cpu", precision="bfloat16")
+    # "bfloat16" is a semantic_s mode (tests/test_torch_precision.py); "mixed"
+    # is semantic_m's alone, refused as the JAX get_policy refuses it
+    with pytest.raises(ValueError, match="unknown precision policy 'mixed'"):
+        HubertEncoder(weights="random", device="cpu", precision="mixed")
     offline(monkeypatch, tmp_path)  # weights="artifacts" with nothing staged
     with pytest.raises(FileNotFoundError, match="AUDIOTOKEN_ARTIFACTS"):
         HubertEncoder(device="cpu")
