@@ -23,7 +23,7 @@ from .configs import (
     Wav2VecBertConfig,
     num_codebooks_to_bandwidth,
 )
-from .encoders import AcousticEncoder, HubertEncoder, Wav2VecBertEncoder, resolve_device
+from .encoders import AcousticEncoder, HubertEncoder, Wav2VecBertEncoder, mesh_device
 
 _ENCODERS = {
     Tokenizers.acoustic: AcousticEncoder,
@@ -56,6 +56,9 @@ class AudioToken:
             where the JAX package computes in bf16, TF32 elsewhere);
             semantic_m also takes ``"mixed"``: ``"high"`` with the stages
             of ``runtime/precision.py:W2VBERT_MIXED_OVERRIDES`` in IEEE f32.
+        mesh: a ``parallel.mesh.Mesh`` (``make_mesh``): the encoder runs data
+            parallel over its "dp" axis on the mesh's device, and every rank
+            must make the same calls. The decoders take none, as in JAX.
     """
 
     def __init__(
@@ -66,11 +69,13 @@ class AudioToken:
         weights: str = "artifacts",
         precision: str = "highest",
         seed: int = 0,
+        mesh=None,
     ):
         self.tokenizer_name = Tokenizers(tokenizer)
         if num_codebooks not in (2, 4, 8, 16):
             raise ValueError(f"num_codebooks must be one of [2, 4, 8, 16], got {num_codebooks}")
-        self.device = resolve_device(device)
+        self.device = mesh_device(device, mesh)
+        self.mesh = mesh
         self.num_codebooks = num_codebooks
         self.weights = weights
         self.precision = precision
@@ -95,6 +100,7 @@ class AudioToken:
                 precision=self.precision,
                 seed=self.seed,
                 device=self.device,
+                mesh=self.mesh,
             )
 
     def encode(

@@ -1,6 +1,7 @@
 // K7: the GPT decode step's products around the attention, for one token
 // per row: decode_qkv (LN1 -> x Wqkv + b) and decode_ffn (x + a Wo + bo ->
-// LN2 -> exact-GELU(h Win + bi) Wout2 + b2 + residual).
+// LN2 -> exact-GELU(h Win + bi) Wout2 + b2 + residual), and decode_ffn's
+// tensor-parallel form, decode_ffn_tp (below).
 //
 // Replaces audiotoken_tpu/ops/decode_step_fused.py:decode_qkv (Pallas
 // kernel `_qkv_kernel`, pallas_call at :108) and decode_ffn (`_ffn_kernel`,
@@ -65,6 +66,23 @@
 // staged in shared memory, each lane keeps 2 x B accumulators, and the sums
 // are reduced across the warp with shuffles, lane b applying row b's
 // epilogue.
+//
+// decode_ffn_tp, tensor parallel (Megatron): the out-projection and the MLP
+// output are row-parallel, so each needs its partial sums added over the
+// ranks before its rounding, bias and residual add. decode_ffn fuses across
+// both of those points, so its tp form is three calls, the caller's
+// all-reduce of f32 sums [B, C] between them:
+//   decode_ffn_tp_out: s1 = a Wo^T (the rank's columns of a, rows of Wo's
+//                      input), the raw f32 sums;
+//   decode_ffn_tp_mlp: x1 = x + s1 + bo (the epilogue of the product, on
+//                      the reduced s1); h = GELU(LN2(x1) Wi^T + bi) on the
+//                      rank's block of Wi; s2 = h W2^T, raw f32 sums;
+//   decode_ffn_tp_add: out = x1 + s2 + b2.
+// The products are decode_ffn's (the same kernels and plans, writing f32
+// sums in place of the epilogue), and the epilogue a small elementwise
+// kernel with decode_ffn's roundings, so on one rank the three calls give
+// decode_ffn's bits. A call that follows the all-reduce starts without
+// programmatic dependent launch.
 
 #include <cstdint>
 
@@ -109,7 +127,7 @@ __global__ void __launch_bounds__(THREADS)
 decode_gemv_kernel(const T* __restrict__ x, const T* __restrict__ ln_w,
                    const T* __restrict__ ln_b, const T* __restrict__ W,
                    const T* __restrict__ bias, const T* __restrict__ resid, T* __restrict__ y,
-                   int B, int K, int N, bool do_ln, int gelu, float eps) {
+                   float* __restrict__ ys, int B, int K, int N, bool do_ln, int gelu, float eps) {
   __shared__ __align__(16) unsigned char xs_raw[MAXB * KC * sizeof(T)];
   __shared__ float mu[MAXB], rstd[MAXB];
   T* xs = reinterpret_cast<T*>(xs_raw);  // [B][KC] chunk of pro(x)
@@ -209,7 +227,9 @@ decode_gemv_kernel(const T* __restrict__ x, const T* __restrict__ ln_w,
 #pragma unroll
     for (int c = 0; c < CPW; ++c) {
       const int o = cols[c];
-      if (o < N) {
+      if (o < N && ys) {
+        ys[(size_t)lane * N + o] = mine[c];
+      } else if (o < N) {
         float t = rnd<T>(mine[c]);
         if (bias) t = rnd<T>(t + to_f(bias[o]));
         if (gelu) t = rnd<T>(0.5f * t * (1.f + erff(t * 0.70710678118654752f)));
@@ -243,6 +263,7 @@ struct Product {
   const bf16* bias;   // [N] or null
   const bf16* resid;  // [B, N] or null
   bf16* y;            // [B, N]
+  float* ys;          // [B, N] the raw f32 sums in place of y and the epilogue, or null
   int B, K, N, gelu;
   int splits, kr;     // k-splits (a cluster) of kr k each
 };
@@ -502,7 +523,9 @@ decode_tc_kernel(Product p) {
 #pragma unroll
   for (int i = 0; i < OUTS; ++i) {
     const int e = tid + i * TC_THREADS, b = e / TC_COLS, o = o0 + e % TC_COLS;
-    if (b < B && o < N) {
+    if (b < B && o < N && p.ys) {
+      p.ys[(size_t)b * N + o] = s[i];
+    } else if (b < B && o < N) {
       float v = rnd<bf16>(s[i]);
       if (p.bias) v = rnd<bf16>(v + to_f(p.bias[o]));
       if (p.gelu) v = rnd<bf16>(0.5f * v * (1.f + erff(v * 0.70710678118654752f)));
@@ -510,6 +533,28 @@ decode_tc_kernel(Product p) {
       p.y[(size_t)b * N + o] = from_f<bf16>(v);
     }
   }
+}
+
+// y = resid + (s rounded to T, then the bias): a product's epilogue on its
+// f32 sums s [B, N], decode_ffn's roundings
+template <typename T>
+__global__ void __launch_bounds__(256)
+decode_residual_kernel(const float* __restrict__ s, const T* __restrict__ bias,
+                       const T* __restrict__ resid, T* __restrict__ y, int total, int N) {
+  launch_dependents();
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= total) return;
+  float t = rnd<T>(s[e]);
+  if (bias) t = rnd<T>(t + to_f(bias[e % N]));
+  y[e] = from_f<T>(to_f(resid[e]) + t);
+}
+
+template <typename T>
+cudaError_t residual(const float* s, const T* bias, const T* resid, T* y, int B, int N,
+                     cudaStream_t stream) {
+  const int total = B * N;
+  decode_residual_kernel<T><<<(total + 255) / 256, 256, 0, stream>>>(s, bias, resid, y, total, N);
+  return cudaGetLastError();
 }
 
 int sm_count() {
@@ -583,15 +628,17 @@ cudaError_t launch_tc(Product p, bool after_own, cudaStream_t stream) {
 }
 
 // y = epi(pro(x) W^T), B > 32 as row groups of 32
+// (with ys, the raw f32 sums into ys instead of y and the epilogue)
 template <typename T>
 cudaError_t gemv(const T* x, const T* ln_w, const T* ln_b, const T* W, const T* bias,
                  const T* resid, T* y, int B, int K, int N, int gelu, float eps,
-                 cudaStream_t stream, bool after_own = false) {
+                 cudaStream_t stream, bool after_own = false, float* ys = nullptr) {
   for (int r0 = 0; r0 < B; r0 += MAXB) {
     const int rows = B - r0 < MAXB ? B - r0 : MAXB;
     const T* rx = x + (size_t)r0 * K;
     const T* rr = resid ? resid + (size_t)r0 * N : nullptr;
-    T* ry = y + (size_t)r0 * N;
+    T* ry = y ? y + (size_t)r0 * N : nullptr;
+    float* rs = ys ? ys + (size_t)r0 * N : nullptr;
     cudaError_t err;
     if constexpr (sizeof(T) == 2) {
       // the LN prologue once for the row group, then the product
@@ -599,10 +646,11 @@ cudaError_t gemv(const T* x, const T* ln_w, const T* ln_b, const T* W, const T* 
       const T* px = rx;
       err = ln_w ? launch_ln(rx, ln_w, ln_b, rows, K, eps, own, stream, &px) : cudaSuccess;
       if (err == cudaSuccess)
-        err = launch_tc(Product{px, W, bias, rr, ry, rows, K, N, gelu, 0, 0}, own || ln_w, stream);
+        err = launch_tc(Product{px, W, bias, rr, ry, rs, rows, K, N, gelu, 0, 0}, own || ln_w,
+                        stream);
     } else {
       decode_gemv_kernel<float><<<(N + COLS - 1) / COLS, THREADS, 0, stream>>>(
-          rx, ln_w, ln_b, W, bias, rr, ry, rows, K, N, ln_w != nullptr, gelu, eps);
+          rx, ln_w, ln_b, W, bias, rr, ry, rs, rows, K, N, ln_w != nullptr, gelu, eps);
       err = cudaGetLastError();
     }
     if (err != cudaSuccess) return err;
@@ -633,6 +681,31 @@ int ffn(const T* x, const T* a, const T* wo, const T* bo, const T* ln_w, const T
     err = gemv((const T*)x1, ln_w, ln_b, wi, bi, none, h, B, C, H, 1, eps, st, true);
   if (err == cudaSuccess)
     err = gemv((const T*)h, none, none, w2, b2, (const T*)x1, out, B, H, C, 0, eps, st, true);
+  return static_cast<int>(err);
+}
+
+// decode_ffn_tp's three calls (see the head of the file). K: the rank's
+// columns of a; C: the model width; H: the rank's MLP columns.
+template <typename T>
+int ffn_tp_out(const T* a, const T* wo, float* s1, int B, int K, int C, void* stream) {
+  const T* none = nullptr;
+  // like decode_ffn's first product, it may start during K6
+  return static_cast<int>(gemv(a, none, none, wo, none, none, (T*)nullptr, B, K, C, 0, 0.f,
+                               static_cast<cudaStream_t>(stream), true, s1));
+}
+
+template <typename T>
+int ffn_tp_mlp(const T* x, const float* s1, const T* bo, const T* ln_w, const T* ln_b,
+               const T* wi, const T* bi, const T* w2, T* x1, T* h, float* s2, int B, int C,
+               int H, float eps, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* none = nullptr;
+  cudaError_t err = residual(s1, bo, x, x1, B, C, st);
+  if (err == cudaSuccess)
+    err = gemv((const T*)x1, ln_w, ln_b, wi, bi, none, h, B, C, H, 1, eps, st, true);
+  if (err == cudaSuccess)
+    err = gemv((const T*)h, none, none, w2, none, none, (T*)nullptr, B, H, C, 0, eps, st, true,
+               s2);
   return static_cast<int>(err);
 }
 
@@ -670,4 +743,45 @@ extern "C" int decode_ffn_bf16(const __nv_bfloat16* x, const __nv_bfloat16* a,
                                __nv_bfloat16* x1, __nv_bfloat16* h, __nv_bfloat16* out, int B,
                                int C, int H, float eps, void* stream) {
   return ffn(x, a, wo, bo, ln_w, ln_b, wi, bi, w2, b2, x1, h, out, B, C, H, eps, stream);
+}
+
+// decode_ffn_tp: a [B, K]; wo [C, K]; s1, s2 [B, C] f32; x, x1, out [B, C];
+// wi [H, C]; w2 [C, H]; bo, b2 [C], bi [H] or null; ln_b may be null; h
+// [B, H] scratch. Between the calls the caller sums s1 (then s2) over the
+// ranks. C, K, H % 8 == 0.
+extern "C" int decode_ffn_tp_out_f32(const float* a, const float* wo, float* s1, int B, int K,
+                                     int C, void* stream) {
+  return ffn_tp_out(a, wo, s1, B, K, C, stream);
+}
+
+extern "C" int decode_ffn_tp_out_bf16(const __nv_bfloat16* a, const __nv_bfloat16* wo, float* s1,
+                                      int B, int K, int C, void* stream) {
+  return ffn_tp_out(a, wo, s1, B, K, C, stream);
+}
+
+extern "C" int decode_ffn_tp_mlp_f32(const float* x, const float* s1, const float* bo,
+                                     const float* ln_w, const float* ln_b, const float* wi,
+                                     const float* bi, const float* w2, float* x1, float* h,
+                                     float* s2, int B, int C, int H, float eps, void* stream) {
+  return ffn_tp_mlp(x, s1, bo, ln_w, ln_b, wi, bi, w2, x1, h, s2, B, C, H, eps, stream);
+}
+
+extern "C" int decode_ffn_tp_mlp_bf16(const __nv_bfloat16* x, const float* s1,
+                                      const __nv_bfloat16* bo, const __nv_bfloat16* ln_w,
+                                      const __nv_bfloat16* ln_b, const __nv_bfloat16* wi,
+                                      const __nv_bfloat16* bi, const __nv_bfloat16* w2,
+                                      __nv_bfloat16* x1, __nv_bfloat16* h, float* s2, int B,
+                                      int C, int H, float eps, void* stream) {
+  return ffn_tp_mlp(x, s1, bo, ln_w, ln_b, wi, bi, w2, x1, h, s2, B, C, H, eps, stream);
+}
+
+extern "C" int decode_ffn_tp_add_f32(const float* x1, const float* s2, const float* b2,
+                                     float* out, int B, int C, void* stream) {
+  return static_cast<int>(residual(s2, b2, x1, out, B, C, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int decode_ffn_tp_add_bf16(const __nv_bfloat16* x1, const float* s2,
+                                      const __nv_bfloat16* b2, __nv_bfloat16* out, int B, int C,
+                                      void* stream) {
+  return static_cast<int>(residual(s2, b2, x1, out, B, C, static_cast<cudaStream_t>(stream)));
 }

@@ -16,6 +16,15 @@ Every encoder takes the JAX package's precision policies ("highest",
 "high", "default", "bfloat16"; ``runtime/precision.py``) and ``buckets``,
 a grid of padded lengths in samples (the default grid when None);
 ``Wav2VecBertEncoder`` also takes "mixed" and ``stage_overrides``.
+
+Every encoder also takes ``mesh`` (``parallel/mesh.py:make_mesh``), data
+parallel as in the JAX package: the weights are replicated on every rank,
+each "dp" rank encodes its share of the rows with its own kernels, and
+every rank returns the whole batch, gathered over "dp". Batches larger
+than ``max_device_batch * dp`` run as sub-batches of that many rows, the
+last one padded by repeating its first row; a batch within that bound must
+be a multiple of dp (a ValueError, as JAX's ``device_put`` raises). All
+ranks of the mesh make the same calls with the same batch.
 """
 
 import math
@@ -33,6 +42,9 @@ from .nn.hubert import HubertConfig, HubertFeatures, feature_lengths
 from .nn.rvq import ResidualVQ, RVQConfig
 from .nn.seanet import SeanetConfig, SeanetEncoder
 from .ops.lookup import nearest_centroid
+from .parallel.collectives import all_gather
+from .parallel.mesh import check_mesh
+from .parallel.shard import data_parallel_shardings
 from .runtime.bucketing import default_buckets, pad_to_bucket
 from .runtime.precision import (
     W2VBERT_MIXED_OVERRIDES,
@@ -60,6 +72,17 @@ def resolve_device(device) -> torch.device:
             "pass device='cpu' to run the plain PyTorch path"
         )
     return device
+
+
+def mesh_device(device, mesh) -> torch.device:
+    """The encoder's device: ``device``, or under a mesh the mesh's (the
+    rank's card), which must be of ``device``'s type."""
+    check_mesh(mesh)
+    if mesh is None:
+        return resolve_device(device)
+    if torch.device(device).type != mesh.device.type:
+        raise ValueError(f"device {str(device)!r} is not the mesh's {str(mesh.device)!r}")
+    return resolve_device(mesh.device)
 
 
 def _require_min_samples(n: int, min_samples: int, sample_rate: int, who: str):
@@ -120,11 +143,41 @@ def _h2d(x: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def _to_device(encoder, input_batch, attention_mask, who: str):
+def _run_rows(encoder, forward, *host: np.ndarray) -> torch.Tensor:
+    """``forward`` over host arrays with rows first -> the device result for
+    every row. Without a mesh the arrays go to the device whole and run in
+    sub-batches of ``max_device_batch`` rows. Under a mesh each dp rank
+    sends and encodes its share of every sub-batch of ``max_device_batch *
+    dp`` rows, and the shares are gathered over dp."""
+    mesh, dev = encoder.mesh, encoder.device
+    if mesh is None:
+        return _run_subbatched(forward, encoder.max_device_batch, *(_h2d(a, dev) for a in host))
+    _, batch_spec = data_parallel_shardings(mesh)
+    dp = mesh.axis(batch_spec[0])  # tp ranks of one dp group encode the same rows
+    mb = encoder.max_device_batch * dp.size
+    B = host[0].shape[0]
+    if B <= mb and B % dp.size:
+        raise ValueError(f"a batch of {B} rows does not split over dp = {dp.size} ranks: "
+                         f"its size should be divisible by {dp.size}")
+    outs = []
+    for i in range(0, B, mb):
+        chunk = [a[i:i + mb] for a in host]
+        n = chunk[0].shape[0]
+        if B > mb and n < mb:  # one sub-batch shape: repeat the first row
+            chunk = [np.concatenate([c, np.repeat(c[:1], mb - n, axis=0)]) for c in chunk]
+        rows = chunk[0].shape[0] // dp.size
+        out = forward(*(_h2d(c[dp.index * rows:(dp.index + 1) * rows], dev) for c in chunk))
+        # NCCL has no int16: the ids and codes are gathered as int32
+        wide = out.int() if out.dtype == torch.int16 else out
+        outs.append(all_gather(wide, dp, dim=0).to(out.dtype)[:n])
+    return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
+def _to_host(encoder, input_batch, attention_mask, who: str):
     """Host side of the semantic encoders: the batch as f32 or int16 PCM,
     its length checked against ``encoder._min_samples``, padded to a
-    bucket, and sent with its mask ([B] lengths where it can be) ->
-    (audio, mask on the device, samples per row)."""
+    bucket, with its mask ([B] lengths where it can be) -> (audio, mask,
+    samples per row)."""
     audio = np.asarray(input_batch)
     if audio.dtype != np.int16:
         audio = audio.astype(np.float32)
@@ -134,7 +187,7 @@ def _to_device(encoder, input_batch, attention_mask, who: str):
     mask = _mask_to_lengths(attention_mask, audio.shape)
     if mask.ndim == 2:
         mask = np.pad(mask, ((0, 0), (0, padded.shape[-1] - mask.shape[-1])))
-    return _h2d(padded, encoder.device), _h2d(mask, encoder.device), n
+    return padded, mask, n
 
 
 class AcousticEncoder:
@@ -153,8 +206,10 @@ class AcousticEncoder:
         seed: int = 0,
         device="cuda",
         buckets=None,
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        self.device = mesh_device(device, mesh)
+        self.mesh = mesh
         self.config = config
         self.seanet_cfg = SeanetConfig()
         self.rvq_cfg = RVQConfig()
@@ -199,8 +254,7 @@ class AcousticEncoder:
         n = audio.shape[-1]
         _require_min_samples(n, 1, self.config.model_sample_rate, "AcousticEncoder")
         padded = pad_to_bucket(audio, self.buckets, self.config.pad_token or 0)
-        x = _h2d(padded, self.device)
-        return _run_subbatched(self._forward, self.max_device_batch, x), math.ceil(n / self.hop)
+        return _run_rows(self, self._forward, padded), math.ceil(n / self.hop)
 
     def __call__(self, input_batch: np.ndarray, attention_mask=None) -> np.ndarray:
         """[B, T] float32 (or int16 PCM) -> [B, num_q, ceil(T/hop)] int16."""
@@ -245,8 +299,10 @@ class HubertEncoder:
         quantize: bool = True,
         attn_impl: Optional[str] = None,
         buckets=None,
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        self.device = mesh_device(device, mesh)
+        self.mesh = mesh
         self.config = config
         self.set_precision(precision)
         self.quantize = quantize
@@ -297,9 +353,8 @@ class HubertEncoder:
             return nearest_centroid(feats, self.centroids).to(torch.int16)
 
     def _run(self, input_batch, attention_mask, quantize: bool):
-        x, m, n = _to_device(self, input_batch, attention_mask, "HubertEncoder")
-        out = _run_subbatched(lambda a, mk: self._forward(a, mk, quantize),
-                              self.max_device_batch, x, m)
+        x, m, n = _to_host(self, input_batch, attention_mask, "HubertEncoder")
+        out = _run_rows(self, lambda a, mk: self._forward(a, mk, quantize), x, m)
         return out, feature_lengths(n, self.model_cfg)
 
     def dispatch(self, input_batch: np.ndarray, attention_mask=None):
@@ -346,8 +401,10 @@ class Wav2VecBertEncoder:
         quantize: bool = True,
         buckets=None,
         stage_overrides=None,
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        self.device = mesh_device(device, mesh)
+        self.mesh = mesh
         self.config = config
         self.set_precision(precision, stage_overrides)
         self.quantize = quantize
@@ -402,13 +459,11 @@ class Wav2VecBertEncoder:
                 return nearest_centroid(feats, self.codebook).to(torch.int16)
 
     def _run(self, input_batch, attention_mask, pad_to_multiple_of: int, quantize: bool):
-        x, m, n = _to_device(self, input_batch, attention_mask, "Wav2VecBertEncoder")
+        x, m, n = _to_host(self, input_batch, attention_mask, "Wav2VecBertEncoder")
         # 50 tokens/s: one token per 2 fbank frames (hop 160 * stride 2)
         n_frames = (1 + (n - self.fbank_cfg.frame_length) // self.fbank_cfg.hop_length) // 2
-        out = _run_subbatched(
-            lambda a, mk: self._forward(a, mk, pad_to_multiple_of, quantize),
-            self.max_device_batch, x, m,
-        )
+        out = _run_rows(self, lambda a, mk: self._forward(a, mk, pad_to_multiple_of, quantize),
+                        x, m)
         return out, n_frames
 
     def dispatch(self, input_batch: np.ndarray, attention_mask=None,

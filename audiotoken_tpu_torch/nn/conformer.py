@@ -19,6 +19,18 @@ TF32 switches; the depthwise conv runs in IEEE f32 under every setting,
 as the JAX package's shift-sum has no precision to lower. bf16 input (the
 ``bfloat16`` policy) takes the feature projection's LayerNorm in bf16, as
 the JAX package computes it, and is f32 from that norm's affine on.
+
+With ``tp`` (a ``parallel.mesh.Axis`` of more than one rank) the model is
+this rank's tensor-parallel shard under ``parallel/shard.py:
+conformer_param_spec``: its heads of q, k and v (K4 runs on them, with the
+whole distance embedding) and the matching rows of the attention's
+out-projection, a column block of each ffn's input and rows of its
+output, and a block of the conv module's channels (``pw1`` holding both
+GLU halves of them, the depthwise kernel, the rows of ``pw2``). Each
+row-parallel product is all-reduced over tp before its bias; the channel
+LayerNorm after the depthwise conv takes its mean and variance over every
+channel, from sums all-reduced over tp. Activations between the modules
+are whole on every rank.
 """
 
 from dataclasses import dataclass
@@ -30,6 +42,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_attention_relkey
+from ..parallel.collectives import all_reduce, row_linear
+from ..parallel.mesh import Axis, single_axis
 from ..runtime.precision import as_stage_precision, bf16_norm, tf32_numerics
 
 
@@ -59,37 +73,45 @@ class W2VBertConfig:
 # ---------------------------------------------------------------------------
 
 
+
+def _row(lin: nn.Linear, x: torch.Tensor, tp: Axis) -> torch.Tensor:
+    """``lin`` as a row-parallel linear over tp; on one rank the module's
+    own call (its hooks see it, as the stage-precision tests need)."""
+    return lin(x) if tp.size == 1 else row_linear(x, lin.weight, lin.bias, tp)
+
+
 class FeedForward(nn.Module):
-    def __init__(self, cfg: W2VBertConfig):
+    def __init__(self, cfg: W2VBertConfig, tp: Axis = single_axis("tp")):
         super().__init__()
-        self.inp = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.out = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.tp = tp
+        self.inp = nn.Linear(cfg.hidden_size, cfg.intermediate_size // tp.size)
+        self.out = nn.Linear(cfg.intermediate_size // tp.size, cfg.hidden_size)
 
     def forward(self, x: torch.Tensor, P) -> torch.Tensor:
         with P.numerics("ffn_in"):
             h = F.silu(self.inp(x))
         with P.numerics("ffn_out"):
-            return self.out(h)
+            return _row(self.out, h, self.tp)
 
 
 class RelKeyAttention(nn.Module):
     """Self-attention with the relative_key position bias."""
 
-    def __init__(self, cfg: W2VBertConfig):
+    def __init__(self, cfg: W2VBertConfig, tp: Axis = single_axis("tp")):
         super().__init__()
-        H = cfg.hidden_size
-        self.cfg = cfg
-        self.q = nn.Linear(H, H)
-        self.k = nn.Linear(H, H)
-        self.v = nn.Linear(H, H)
-        self.out = nn.Linear(H, H)
+        H, Hl = cfg.hidden_size, cfg.hidden_size // tp.size
+        self.cfg, self.tp = cfg, tp
+        self.q = nn.Linear(H, Hl)
+        self.k = nn.Linear(H, Hl)
+        self.v = nn.Linear(H, Hl)
+        self.out = nn.Linear(Hl, H)
         self.distance_embedding = nn.Parameter(torch.zeros(cfg.num_positions, cfg.head_size))
 
     def forward(self, x: torch.Tensor, frame_mask: Optional[torch.Tensor], P) -> torch.Tensor:
-        B, T, H = x.shape
-        nh, dh = self.cfg.num_attention_heads, self.cfg.head_size
+        B, T, _ = x.shape
+        nh, dh = self.cfg.num_attention_heads // self.tp.size, self.cfg.head_size
 
-        def heads(t):  # [B, T, H] -> [B, nh, T, dh], contiguous for K4
+        def heads(t):  # [B, T, nh*dh] -> [B, nh, T, dh], contiguous for K4
             return t.reshape(B, T, nh, dh).transpose(1, 2).contiguous()
 
         with P.numerics("attn_qkv"):
@@ -101,21 +123,35 @@ class RelKeyAttention(nn.Module):
             right=self.cfg.right_max_position_embeddings,
         )
         with P.numerics("attn_out"):
-            return self.out(a.transpose(1, 2).reshape(B, T, H))
+            return _row(self.out, a.transpose(1, 2).reshape(B, T, nh * dh), self.tp)
 
 
 class ConvModule(nn.Module):
     """LN -> mask-zero -> pointwise(2H) -> GLU -> causal depthwise(K) ->
     LN -> swish -> pointwise(H)."""
 
-    def __init__(self, cfg: W2VBertConfig):
+    def __init__(self, cfg: W2VBertConfig, tp: Axis = single_axis("tp")):
         super().__init__()
         H, K = cfg.hidden_size, cfg.conv_depthwise_kernel_size
+        Hl = H // tp.size  # this rank's channels
+        self.tp = tp
         self.layer_norm = nn.LayerNorm(H, eps=cfg.layer_norm_eps)
-        self.pw1 = nn.Linear(H, 2 * H, bias=False)
-        self.dw_weight = nn.Parameter(torch.zeros(H, 1, K))  # [H, 1, K], F.conv1d layout
+        self.pw1 = nn.Linear(H, 2 * Hl, bias=False)  # [a | b] of the GLU, each Hl wide
+        self.dw_weight = nn.Parameter(torch.zeros(Hl, 1, K))  # [Hl, 1, K], F.conv1d layout
         self.dw_layer_norm = nn.LayerNorm(H, eps=cfg.layer_norm_eps)
-        self.pw2 = nn.Linear(H, H, bias=False)
+        self.pw2 = nn.Linear(Hl, H, bias=False)
+
+    def _dw_norm(self, h: torch.Tensor) -> torch.Tensor:
+        """The channel LayerNorm after the depthwise conv; under tp over
+        this rank's channels with every channel's mean and variance."""
+        ln, tp = self.dw_layer_norm, self.tp
+        if tp.size == 1:
+            return ln(h)
+        H, Hl = ln.weight.shape[0], h.shape[-1]
+        mu = all_reduce(h.sum(-1, keepdim=True), tp) / H
+        var = all_reduce((h - mu).square().sum(-1, keepdim=True), tp) / H
+        mine = slice(tp.index * Hl, (tp.index + 1) * Hl)
+        return (h - mu) * torch.rsqrt(var + ln.eps) * ln.weight[mine] + ln.bias[mine]
 
     def forward(self, x: torch.Tensor, frame_mask: Optional[torch.Tensor], P) -> torch.Tensor:
         h = self.layer_norm(x)
@@ -127,22 +163,22 @@ class ConvModule(nn.Module):
         with tf32_numerics(False):  # the JAX shift-sum's exact f32, under every setting
             h = F.conv1d(F.pad(h.transpose(1, 2), (K - 1, 0)), self.dw_weight,
                          groups=h.shape[-1]).transpose(1, 2)
-        h = F.silu(self.dw_layer_norm(h))
+        h = F.silu(self._dw_norm(h))
         with P.numerics("conv"):
-            return self.pw2(h)
+            return _row(self.pw2, h, self.tp)
 
 
 class ConformerBlock(nn.Module):
-    def __init__(self, cfg: W2VBertConfig):
+    def __init__(self, cfg: W2VBertConfig, tp: Axis = single_axis("tp")):
         super().__init__()
         H, eps = cfg.hidden_size, cfg.layer_norm_eps
         self.ffn1_layer_norm = nn.LayerNorm(H, eps=eps)
-        self.ffn1 = FeedForward(cfg)
+        self.ffn1 = FeedForward(cfg, tp)
         self.self_attn_layer_norm = nn.LayerNorm(H, eps=eps)
-        self.attn = RelKeyAttention(cfg)
-        self.conv = ConvModule(cfg)
+        self.attn = RelKeyAttention(cfg, tp)
+        self.conv = ConvModule(cfg, tp)
         self.ffn2_layer_norm = nn.LayerNorm(H, eps=eps)
-        self.ffn2 = FeedForward(cfg)
+        self.ffn2 = FeedForward(cfg, tp)
         self.final_layer_norm = nn.LayerNorm(H, eps=eps)
 
     def forward(self, x: torch.Tensor, frame_mask: Optional[torch.Tensor], P) -> torch.Tensor:
@@ -156,16 +192,22 @@ class ConformerBlock(nn.Module):
 
 class W2VBertFeatures(nn.Module):
     """[B, T, 160] fbank (+ frame mask [B, T]) -> hidden_states[output_layer]
-    [B, T, hidden]; holds and runs exactly ``output_layer`` blocks."""
+    [B, T, hidden]; holds and runs exactly ``output_layer`` blocks. With
+    ``tp``, this rank's tensor-parallel shard; the output is whole."""
 
-    def __init__(self, cfg: W2VBertConfig = W2VBertConfig(), output_layer: int = 19):
+    def __init__(self, cfg: W2VBertConfig = W2VBertConfig(), output_layer: int = 19,
+                 tp: Optional[Axis] = None):
         super().__init__()
         if not 1 <= output_layer <= cfg.num_hidden_layers:
             raise ValueError(f"output_layer {output_layer} outside 1..{cfg.num_hidden_layers}")
+        tp = tp or single_axis("tp")
+        if cfg.num_attention_heads % tp.size or cfg.intermediate_size % tp.size:
+            raise ValueError(f"tp = {tp.size} must divide the {cfg.num_attention_heads} heads "
+                             f"and the {cfg.intermediate_size} ffn channels")
         self.cfg = cfg
         self.fp_layer_norm = nn.LayerNorm(cfg.feature_projection_input_dim, eps=cfg.layer_norm_eps)
         self.projection = nn.Linear(cfg.feature_projection_input_dim, cfg.hidden_size)
-        self.layers = nn.ModuleList(ConformerBlock(cfg) for _ in range(output_layer))
+        self.layers = nn.ModuleList(ConformerBlock(cfg, tp) for _ in range(output_layer))
 
     def forward(self, input_features: torch.Tensor,
                 attention_mask: Optional[torch.Tensor], precision="highest") -> torch.Tensor:

@@ -15,6 +15,21 @@ the qkv row and also appends the token to the cache) -> K7 ``decode_ffn``,
 chained by programmatic dependent launch on the card, then ``ln_f`` and the tied logits as a
 plain product. On a CPU tensor each kernel wrapper runs its plain version.
 
+:class:`GPT` also runs tensor parallel over a mesh axis ``tp`` (Megatron,
+``parallel/shard.py:gpt_param_spec``): it then holds rank r's shard, heads
+``r*nh/tp ... (r+1)*nh/tp`` of the column-parallel qkv (q, k and v alike),
+the matching rows of the row-parallel out-projection, a column block of
+``mlp/in`` and rows of ``mlp/out``, and rows ``r*V/tp ...`` of the
+vocab-parallel ``wte``, used both for the embedding and for the tied head;
+``wpe`` and the LayerNorms are whole. The collectives are
+``parallel/collectives.py``'s: an all-reduce after each row-parallel
+product, before its bias and the residual add. In the decode step the
+rank's K7 ``decode_qkv`` and K6 run on its heads; K7 ``decode_ffn`` fuses
+the out-projection through the MLP, across both all-reduces, so under
+tp > 1 its tensor-parallel entry ``decode_ffn_tp`` runs instead: the same
+products on the rank's shard, each row-parallel one's f32 sums all-reduced
+before ``decode_ffn``'s rounding, bias and residual add.
+
 :class:`GPTSampler` copies the JAX sampler's host logic: prompt buckets,
 left padding, the slide to the trailing context when the cache has no
 room, the phase split at ``block_size // 2`` and per-row stop bookkeeping.
@@ -24,6 +39,7 @@ the RNG streams differ from JAX's, so sampled outputs agree only in
 distribution.
 """
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -33,7 +49,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.decode_attention import decode_attention
-from ..ops.decode_step import decode_ffn, decode_qkv
+from ..ops.decode_step import decode_ffn, decode_ffn_tp, decode_qkv
+from ..parallel.collectives import (
+    all_gather,
+    all_reduce,
+    copy_to,
+    row_linear,
+    vocab_cross_entropy,
+    vocab_embedding,
+)
+from ..parallel.mesh import Axis, check_mesh, single_axis
 
 
 @dataclass(frozen=True)
@@ -69,15 +94,17 @@ class Linear(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: GPTConfig):
+    """One layer; under tp the rank's shard (``tp`` ranks)."""
+
+    def __init__(self, cfg: GPTConfig, tp: int = 1):
         super().__init__()
         C = cfg.n_embd
         self.ln1 = LayerNorm(C, cfg.bias)
-        self.qkv = Linear(C, 3 * C, cfg.bias)
-        self.out = Linear(C, C, cfg.bias)
+        self.qkv = Linear(C, 3 * C // tp, cfg.bias)
+        self.out = Linear(C // tp, C, cfg.bias)
         self.ln2 = LayerNorm(C, cfg.bias)
-        self.mlp_in = Linear(C, 4 * C, cfg.bias)
-        self.mlp_out = Linear(4 * C, C, cfg.bias)
+        self.mlp_in = Linear(C, 4 * C // tp, cfg.bias)
+        self.mlp_out = Linear(4 * C // tp, C, cfg.bias)
 
 
 def _ln(m: LayerNorm, x, eps):
@@ -89,46 +116,63 @@ def _lin(m: Linear, x):
 
 
 class GPT(nn.Module):
-    def __init__(self, cfg: GPTConfig):
+    """The GPT, or with ``tp`` (a ``parallel.mesh.Axis`` of more than one
+    rank) this rank's tensor-parallel shard of it."""
+
+    def __init__(self, cfg: GPTConfig, tp: Optional[Axis] = None):
         super().__init__()
         self.cfg = cfg
-        self.wte = _param(cfg.vocab_size, cfg.n_embd)
+        self.tp = tp = tp or single_axis("tp")
+        if cfg.n_head % tp.size or cfg.vocab_size % tp.size:
+            raise ValueError(f"tp = {tp.size} must divide the {cfg.n_head} heads and the "
+                             f"vocab of {cfg.vocab_size}")
+        self.n_head = cfg.n_head // tp.size  # heads held by this rank
+        self.wte = _param(cfg.vocab_size // tp.size, cfg.n_embd)
         self.wpe = _param(cfg.block_size, cfg.n_embd)
         self.ln_f = LayerNorm(cfg.n_embd, cfg.bias)
-        self.layers = nn.ModuleList(Block(cfg) for _ in range(cfg.n_layer))
+        self.layers = nn.ModuleList(Block(cfg, tp.size) for _ in range(cfg.n_layer))
 
     def _attention(self, layer: Block, h, bias):
-        """Multi-head attention of h [B, T, C] under an additive bias
-        [B or 1, 1, T, T]; scores and softmax in f32 -> (out [B, T, C],
-        k, v [B, nh, T, dh])."""
+        """Multi-head attention (this rank's heads) of h [B, T, C] under an
+        additive bias [B or 1, 1, T, T]; scores and softmax in f32 -> (out
+        [B, T, nh*dh], k, v [B, nh, T, dh])."""
         B, T, C = h.shape
-        nh = self.cfg.n_head
-        q, k, v = _lin(layer.qkv, h).view(B, T, 3, nh, C // nh).permute(2, 0, 3, 1, 4)
-        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (C // nh) ** -0.5 + bias
+        nh, dh = self.n_head, C // self.cfg.n_head
+        q, k, v = _lin(layer.qkv, h).view(B, T, 3, nh, dh).permute(2, 0, 3, 1, 4)
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * dh ** -0.5 + bias
         p = torch.softmax(s, dim=-1).to(h.dtype)
         a = torch.matmul(p.float(), v.float()).to(h.dtype)
-        return a.transpose(1, 2).reshape(B, T, C), k, v
+        return a.transpose(1, 2).reshape(B, T, nh * dh), k, v
 
     def _blocks(self, x, bias):
         """The layer stack -> (ln_f(x), [(k, v)] per layer)."""
-        eps = self.cfg.layer_norm_eps
+        eps, tp = self.cfg.layer_norm_eps, self.tp
         kv = []
         for layer in self.layers:
-            a, k, v = self._attention(layer, _ln(layer.ln1, x, eps), bias)
+            a, k, v = self._attention(layer, copy_to(_ln(layer.ln1, x, eps), tp), bias)
             kv.append((k, v))
-            x = x + _lin(layer.out, a)
-            h = F.gelu(_lin(layer.mlp_in, _ln(layer.ln2, x, eps)))
-            x = x + _lin(layer.mlp_out, h)
+            x = x + row_linear(a, layer.out.weight, layer.out.bias, tp)
+            h = F.gelu(_lin(layer.mlp_in, copy_to(_ln(layer.ln2, x, eps), tp)))
+            x = x + row_linear(h, layer.mlp_out.weight, layer.mlp_out.bias, tp)
         return _ln(self.ln_f, x, eps), kv
 
     def logits(self, x):
-        """Tied lm_head: hidden [..., C] -> logits [..., vocab] f32."""
-        return F.linear(x, self.wte).float()
+        """Tied lm_head: hidden [..., C] -> logits [..., vocab] f32 (under
+        tp, this rank's vocab rows: [..., vocab / tp])."""
+        return F.linear(copy_to(x, self.tp), self.wte).float()
+
+    def full_logits(self, x):
+        """:meth:`logits` over the whole vocab, gathered over tp."""
+        return all_gather(self.logits(x), self.tp, dim=-1)
+
+    def _embed(self, idx, pos_ids):
+        return vocab_embedding(idx, self.wte, self.tp) + self.wpe[pos_ids]
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        """Full causal forward: ids [B, T] -> logits [B, T, vocab] f32."""
+        """Full causal forward: ids [B, T] -> logits [B, T, vocab] f32 (under
+        tp, this rank's vocab rows)."""
         T = idx.shape[1]
-        x = self.wte[idx] + self.wpe[:T]
+        x = self._embed(idx, slice(None, T))
         bias = torch.zeros((T, T), device=idx.device)
         if self.cfg.causal:
             bias = torch.full((T, T), torch.finfo(torch.float32).min, device=idx.device).triu(1)
@@ -143,7 +187,7 @@ class GPT(nn.Module):
         B, T = padded.shape
         t = torch.arange(T, device=padded.device)
         pos_ids = (t[None, :] - start[:, None]).clamp(min=0)
-        x = self.wte[padded] + self.wpe[pos_ids]
+        x = self._embed(padded, pos_ids)
         allowed = (t[None, :] <= t[:, None])[None] & (t[None, :] >= start[:, None])[:, None, :]
         bias = torch.where(allowed, 0.0, torch.finfo(torch.float32).min)[:, None]
         x, kv = self._blocks(x, bias)
@@ -161,27 +205,45 @@ class GPT(nn.Module):
         """One token per row: tok [B] at cache slot ``pos`` (row i's position
         id ``pos - start[i]``); k_cache, v_cache [n_layer, B, nh, slots, dh]
         gain the token's k and v at slot ``pos``; ``weights`` is
-        :meth:`decode_weights`. -> logits [B, vocab] f32."""
-        cfg = self.cfg
+        :meth:`decode_weights`. -> logits [B, vocab] f32. Under tp the
+        caches hold this rank's heads and the logits are gathered."""
+        cfg, tp = self.cfg, self.tp
         C, eps = cfg.n_embd, cfg.layer_norm_eps
-        x = self.wte[tok] + self.wpe[(pos - start).long()]
+        Cl = C // tp.size  # this rank's q (and k, and v) columns
+        reduce = functools.partial(all_reduce, axis=tp)
+        x = self._embed(tok, (pos - start).long())
         for li, (ln1_w, ln1_b, w_qkv, b_qkv, w_out, b_out, ln2_w, ln2_b, w_in, b_in, w_out2,
                  b_out2) in enumerate(weights):
             qkv = decode_qkv(x, ln1_w, ln1_b, w_qkv, b_qkv, eps)
-            a = decode_attention(qkv[:, :C], k_cache[li], v_cache[li], start, pos,
-                                 qkv[:, C:2 * C], qkv[:, 2 * C:], chained=True)
-            x = decode_ffn(x, a, w_out, ln2_w, ln2_b, w_in, w_out2, b_out, b_in, b_out2, eps)
-        return self.logits(F.layer_norm(x, (C,), self.ln_f.weight, self.ln_f.bias, eps))
+            a = decode_attention(qkv[:, :Cl], k_cache[li], v_cache[li], start, pos,
+                                 qkv[:, Cl:2 * Cl], qkv[:, 2 * Cl:], chained=True)
+            if tp.size == 1:
+                x = decode_ffn(x, a, w_out, ln2_w, ln2_b, w_in, w_out2, b_out, b_in, b_out2, eps)
+            else:
+                x = decode_ffn_tp(x, a, w_out, ln2_w, ln2_b, w_in, w_out2, reduce, b_out, b_in,
+                                  b_out2, eps)
+        return self.full_logits(F.layer_norm(x, (C,), self.ln_f.weight, self.ln_f.bias, eps))
 
 
-def gpt_loss(model: GPT, idx: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def gpt_loss(model: GPT, idx: torch.Tensor, targets: torch.Tensor,
+             count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross-entropy over the targets that are not -1:
     the sum of their negative log-likelihoods over max(count, 1), so a batch
-    with no valid target gives 0, not NaN (``audiotoken_tpu.nn.gpt.gpt_loss``)."""
+    with no valid target gives 0, not NaN (``audiotoken_tpu.nn.gpt.gpt_loss``).
+    ``count`` (default: the valid targets here) is the divisor's count: a
+    data-parallel rank divides by the whole batch's. Under tp the
+    cross-entropy runs vocab-parallel, without gathering the logits."""
     logits = model(idx)
-    nll = F.cross_entropy(logits.flatten(0, 1), targets.flatten().long(), ignore_index=-1,
-                          reduction="sum")
-    return nll / (targets >= 0).sum().clamp(min=1)
+    if count is None:
+        count = (targets >= 0).sum()
+    if model.tp.size == 1:
+        nll = F.cross_entropy(logits.flatten(0, 1), targets.flatten().long(), ignore_index=-1,
+                              reduction="sum")
+    else:
+        valid = targets >= 0
+        nll = (vocab_cross_entropy(logits, torch.where(valid, targets, 0).long(), model.tp)
+               * valid).sum()
+    return nll / count.clamp(min=1)
 
 
 def expand_vocab(params, new_vocab_size: int, seed: int = 0):
@@ -208,7 +270,15 @@ def _bucket_len(n: int, bucket: int, cap: int) -> int:
 
 class GPTSampler:
     """Batched KV-cache generation with per-row stop bookkeeping and
-    context-window sliding (``audiotoken_tpu/nn/gpt.py:GPTSampler``)."""
+    context-window sliding (``audiotoken_tpu/nn/gpt.py:GPTSampler``).
+
+    With ``mesh`` (``parallel/mesh.py``) the sampler runs on the mesh's
+    device, tensor parallel over its "tp" axis under
+    ``parallel/shard.py:gpt_sampler_param_spec`` (a copy of ``model``'s
+    weights, sharded); "dp" replicates it, as in JAX: every rank gets the
+    same prompts and returns the same tokens. The last position's logits
+    are gathered over tp and every rank draws with the same seeded
+    generator, so the tp ranks pick the same token."""
 
     #: prompt lengths are bucketed to this multiple
     PROMPT_BUCKET = 32
@@ -219,7 +289,11 @@ class GPTSampler:
     #: check changes when the loop ends, not what it returns
     DONE_CHECK_EVERY = 16
 
-    def __init__(self, model: GPT):
+    def __init__(self, model: GPT, mesh=None):
+        check_mesh(mesh)
+        self.mesh = mesh
+        if mesh is not None:
+            model = _shard_model(model, mesh)
         self.model = model
         self.cfg = model.cfg
         #: decode steps run so far (each one launches K6 and both K7 entry
@@ -311,7 +385,7 @@ class GPTSampler:
         -> (tokens [B, n_new] with -1 at and after each stop, done [B])."""
         model, cfg, dev = self.model, self.cfg, self.device
         B, P = padded.shape
-        nh, dh = cfg.n_head, cfg.n_embd // cfg.n_head
+        nh, dh = model.n_head, cfg.n_embd // cfg.n_head
         start = torch.from_numpy((P - lens).astype(np.int32)).to(dev)  # K6 reads int32
         last_h, kv = model.prefill(torch.from_numpy(padded).long().to(dev), start.long())
         dtype = last_h.dtype
@@ -321,7 +395,7 @@ class GPTSampler:
             k_cache[li, :, :, :P] = k
             v_cache[li, :, :, :P] = v
         del kv
-        logits = model.logits(last_h)
+        logits = model.full_logits(last_h)
         done_t = torch.from_numpy(done).to(dev)
         out = torch.full((B, n_new), -1, dtype=torch.int32, device=dev)
         weights = model.decode_weights()
@@ -337,6 +411,20 @@ class GPTSampler:
             logits = model.decode_step(tok, P + i, start, k_cache, v_cache, weights)
             self.decode_steps += 1
         return out.cpu().numpy(), done_t.cpu().numpy()
+
+
+def _shard_model(model: GPT, mesh) -> GPT:
+    """``model``'s tensor-parallel shard for this rank of ``mesh``, on the
+    mesh's device and in ``model``'s dtype."""
+    from ..parallel.shard import gpt_sampler_param_spec, shard_tree
+    from ..weights import gpt_from_numpy, gpt_to_numpy
+
+    tree = gpt_to_numpy(model)
+    local = shard_tree(tree, gpt_sampler_param_spec(tree), mesh, mesh.rank)
+    with torch.device("meta"):
+        shard = GPT(model.cfg, mesh.axis("tp"))
+    shard.load_state_dict(gpt_from_numpy(local), assign=True)
+    return shard.to(device=mesh.device, dtype=model.wte.dtype).eval()
 
 
 def _sample(logits: torch.Tensor, temperature: float, top_k: Optional[int],

@@ -45,6 +45,9 @@ SIGNATURES = {
     **{f"decode_attention_{t}": (_P,) * 7 + (_I,) * 6 for t in ("f32", "bf16")},
     **{f"decode_qkv_{t}": (_P,) * 6 + (_I,) * 3 + (_F,) for t in ("f32", "bf16")},
     **{f"decode_ffn_{t}": (_P,) * 13 + (_I,) * 3 + (_F,) for t in ("f32", "bf16")},
+    **{f"decode_ffn_tp_out_{t}": (_P,) * 3 + (_I,) * 3 for t in ("f32", "bf16")},
+    **{f"decode_ffn_tp_mlp_{t}": (_P,) * 11 + (_I,) * 3 + (_F,) for t in ("f32", "bf16")},
+    **{f"decode_ffn_tp_add_{t}": (_P,) * 4 + (_I,) * 2 for t in ("f32", "bf16")},
     **{f"attn_ablation_{t}": (_P,) * 4 + (_I,) * 4 for t in ("f32", "bf16")},
 }
 

@@ -18,6 +18,13 @@ by rounding: LN statistics in f32; the normalised row, scale and shift
 rounded to the activation dtype in turn; products accumulated in f32 and
 rounded, then the bias, the GELU (exact erf, in f32) and the residual,
 each rounded. The plain versions below spell that staging out.
+
+``decode_ffn_tp`` is ``decode_ffn`` for a tensor-parallel rank, whose
+out-projection and MLP output are row-parallel: each product's f32 sums
+pass through the caller's ``reduce`` (the all-reduce over the ranks)
+before their rounding, bias and residual add. It is three C calls, split
+at those two points; with ``reduce`` the identity and whole weights it
+computes ``decode_ffn``'s bits.
 """
 
 import torch
@@ -52,6 +59,27 @@ def decode_ffn_plain(x, a, w_out, ln_w, ln_b, w_in, w_out2, b_out=None, b_in=Non
     h = _product(_layer_norm_staged(x1, ln_w, ln_b, eps), w_in, b_in)
     h = F.gelu(h.float()).to(x.dtype)
     return x1 + _product(h, w_out2, b_out2)
+
+
+def _sums(x, w):
+    return torch.matmul(x.float(), w.float().t())
+
+
+def _residual(r, s, b):
+    """r + (the f32 sums s rounded to r's dtype, then the bias b)."""
+    y = s.to(r.dtype)
+    return r + (y if b is None else y + b)
+
+
+def decode_ffn_tp_plain(x, a, w_out, ln_w, ln_b, w_in, w_out2, reduce, b_out=None, b_in=None,
+                        b_out2=None, eps: float = 1e-5):
+    """x [B, C]; a [B, K] (the rank's attention columns); w_out [C, K];
+    w_in [H, C] (the rank's MLP columns); w_out2 [C, H]; ``reduce`` maps
+    f32 sums [B, C] to their sum over the ranks -> [B, C]."""
+    x1 = _residual(x, reduce(_sums(a, w_out)), b_out)
+    h = _product(_layer_norm_staged(x1, ln_w, ln_b, eps), w_in, b_in)
+    h = F.gelu(h.float()).to(x.dtype)
+    return _residual(x1, reduce(_sums(h, w_out2)), b_out2)
 
 
 #: widths the bf16 kernel takes: a LayerNorm prologue needs whole rows in
@@ -123,3 +151,43 @@ def decode_ffn(x, a, w_out, ln_w, ln_b, w_in, w_out2, b_out=None, b_in=None, b_o
 
 
 decode_ffn.launches = 0
+
+
+def decode_ffn_tp(x, a, w_out, ln_w, ln_b, w_in, w_out2, reduce, b_out=None, b_in=None,
+                  b_out2=None, eps: float = 1e-5):
+    """The function of :func:`decode_ffn_tp_plain`: one call of K7's tp
+    entry for CUDA tensors (the out-projection's f32 sums; ``reduce``; the
+    MLP, LN2 before it, to the MLP output's f32 sums; ``reduce``; the
+    residual add), the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return decode_ffn_tp_plain(x, a, w_out, ln_w, ln_b, w_in, w_out2, reduce, b_out, b_in,
+                                   b_out2, eps)
+    B, C = x.shape
+    K, H = a.shape[1], w_in.shape[0]
+    _check("decode_ffn_tp", x, C, max(K, H), x=(x, (B, C)), a=(a, (B, K)),
+           w_out=(w_out, (C, K)), b_out=(b_out, (C,)), ln_w=(ln_w, (C,)), ln_b=(ln_b, (C,)),
+           w_in=(w_in, (H, C)), b_in=(b_in, (H,)), w_out2=(w_out2, (C, H)),
+           b_out2=(b_out2, (C,)))
+    sfx, dev = _build.DTYPE_SUFFIX[x.dtype], x.device
+
+    def reduced(s):
+        s = reduce(s)
+        _build.check_tensor(s, "reduce(sums)", (B, C), torch.float32, dev)
+        return s
+
+    s1 = torch.empty((B, C), dtype=torch.float32, device=dev)
+    _build.launch(f"decode_ffn_tp_out_{sfx}", dev, a, w_out, s1, B, K, C)
+    s1 = reduced(s1)
+    x1 = torch.empty_like(x)
+    h = torch.empty((B, H), dtype=x.dtype, device=dev)
+    s2 = torch.empty((B, C), dtype=torch.float32, device=dev)
+    _build.launch(f"decode_ffn_tp_mlp_{sfx}", dev, x, s1, b_out, ln_w, ln_b, w_in, b_in, w_out2,
+                  x1, h, s2, B, C, H, eps)
+    s2 = reduced(s2)
+    out = torch.empty_like(x)
+    _build.launch(f"decode_ffn_tp_add_{sfx}", dev, x1, s2, b_out2, out, B, C)
+    decode_ffn_tp.launches += 1
+    return out
+
+
+decode_ffn_tp.launches = 0

@@ -105,6 +105,12 @@ def encode_batch_files(
     Returns the summary: audio seconds, wall seconds, RTFx, batches, the
     stage spans and, where chunks failed, ``failed_files``.
     """
+    mesh = getattr(encoder, "mesh", None)
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            "encode_batch_files: an encoder on a mesh of more than one rank is not driven by "
+            "the corpus executor yet (ROADMAP Queue 1); run one process per device without "
+            "a mesh, which shards the files over the ranks")
     if not audio_files and not audio_dir:
         raise ValueError("Either audio_files or audio_dir must be provided")
     if audio_files and audio_dir:

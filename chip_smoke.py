@@ -37,14 +37,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
      1023, 640 and 256 (two calls must give the same bits), with SDPA over
      the cache and a mask of the attended slots beside it, and once at B=8
      as the decode step launches it (chained after decode_qkv), and K7
-     (decode_qkv, decode_ffn); all three are timed with the device's queue
+     (decode_qkv, decode_ffn, and decode_ffn_tp, decode_ffn's tensor-parallel
+     entry, on a tp=2 rank's shard with the identity for its all-reduce);
+     all three are timed with the device's queue
      filled first (``device_ms``): K6 and K7 take microseconds, less than
      their launch, and K5's tenth of a millisecond is not much more than its
      wrapper's host time. K7 in bf16 at B=8 and 32 is timed with its weights
      cold (``cold_ms``: the calls cycle through distinct weight sets larger
      together than the L2, as a 12-layer step does), beside its plain
      version and the unfused chain of PyTorch calls for the same function
-     (``chain_ms``), and warm;
+     (``chain_ms``), and warm (decode_ffn_tp at B=8 and 32 on the shard);
   4c. the decode main paths: ``AudioToken(Tokenizers.acoustic).decode`` of
      30 s of codes and ``AcousticDecoder`` at 8 and 32 x 30 s (real-time
      factors, peak memory), then ``AudioToken(Tokenizers.semantic_m)
@@ -130,6 +132,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
      ms a step, tokens/s, peak memory; the trained model through
      ``gpt_to_numpy`` -> ``save_params`` -> ``weights=<dir>`` decodes the
      same greedy tokens as the model in memory, K6 and K7 launched.
+  7. the mesh (``audiotoken_tpu_torch/parallel``): 7a, a world of one
+     over NCCL through the entry points' ``mesh=``:
+     ``AudioToken(acoustic, mesh=make_mesh(("dp",)))`` on the battery,
+     codes equal to phase 5's seed 0, and semantic_m at B=8 x 30 s, ids
+     equal to phase 4b's, each with its RTFx beside the same encoder's
+     without the mesh; 7b, two ranks on the one card over gloo (NCCL
+     refuses two ranks on one GPU; which collectives gloo takes on CUDA
+     tensors is checked first): the dp=2 acoustic battery under the
+     per-case contract with its count of codes that differ from world 1
+     (printed, not gated: cuDNN may choose another algorithm at 6 rows),
+     the tp=2 sampler (f32, ``highest``, greedy) on the prompts of
+     ``tests/torch_goldens/decode_semantic_m_s0.npz`` gated as 5c's AR
+     rows, and ``TrainStep`` at (dp 1, tp 2) and (dp 2, tp 1) on 6c's
+     batch for ``MESH_TRAIN_STEPS`` steps under ``highest``, each loss
+     within ``MESH_LOSS_ATOL`` of 6c's world-1 losses; 7c, the tp=2
+     conformer on 2 x 30 s of semantic_m: features within
+     ``MESH_FEATURE_ATOL`` of world 1, ids under the semantic_m contract; 7d, each rank's
+     launches of K4, K6 and K7 (``decode_qkv`` on the rank's qkv rows,
+     ``decode_ffn_tp`` on its shard of the out-projection and MLP, with
+     the all-reduces between its calls), and, after that count, K7's
+     ``decode_ffn_tp`` against its plain version with the same
+     all-reduce at the sampler's shard shapes; shard shapes, and ms a
+     step, tokens/s and RTFx of the two processes sharing one card, which
+     are not a scaling figure.
 
 Every kernel entry carries ``bound_ms``, the least time the card could take
 for the same work: the larger of its operations over the H100's peak for
@@ -145,6 +171,7 @@ line is ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
+import functools
 import itertools
 import json
 import os
@@ -201,6 +228,8 @@ from audiotoken_tpu_torch.ops.decode_attention import (  # noqa: E402
 from audiotoken_tpu_torch.ops.decode_step import (  # noqa: E402
     decode_ffn,
     decode_ffn_plain,
+    decode_ffn_tp,
+    decode_ffn_tp_plain,
     decode_qkv,
     decode_qkv_plain,
 )
@@ -240,7 +269,8 @@ KERNEL_ATOL = 1e-4  # K1, K2, K4: kernel vs plain in f32 (K4 in 3xTF32), other s
 RVQ_AGREEMENT = 0.999  # K3: late-codebook near-ties may flip (RVQ contract)
 ACOUSTIC_KERNELS = (seanet_front, lstm_layer, rvq_encode)
 DECODE_KERNELS = (flash_attention_plain, decode_attention, decode_qkv, decode_ffn)
-KERNELS = ACOUSTIC_KERNELS + (flash_attention_relkey,) + DECODE_KERNELS
+# decode_ffn_tp, K7's tensor-parallel entry, runs on phase 7's tp=2 sampler
+KERNELS = ACOUSTIC_KERNELS + (flash_attention_relkey,) + DECODE_KERNELS + (decode_ffn_tp,)
 W2V_BLOCKS = 19  # conformer blocks a semantic_m forward runs, one K4 launch each
 HUBERT_LAYERS = 11  # layers a semantic_s forward runs, one K4 launch each ("flash")
 GPT_LAYERS, FINE_LAYERS = 12, 24  # K6/K7 launches per decode step, K5 per fine pass
@@ -707,6 +737,8 @@ def phase4b_semantic_m(dev, tmp):
             walls.append(time.perf_counter() - t0)
             forwards += 1
             _check_ids(ids, (B, 1, 1499))
+            if B == 8:
+                ids8 = ids  # phase 7a's reference
         wall = statistics.median(walls)
         say(f"[4b] Wav2VecBertEncoder B={B} x 30 s int16: median wall {wall * 1e3:.1f} ms "
             f"(runs {', '.join(f'{w * 1e3:.1f}' for w in walls)}), RTFx {B * 30.0 / wall:.1f}")
@@ -714,7 +746,7 @@ def phase4b_semantic_m(dev, tmp):
     say(f"[4b] K4 launches during the semantic_m main path: {n} over {forwards} forwards")
     if n < W2V_BLOCKS * forwards:
         raise AssertionError(f"K4 launched {n} times, expected >= {W2V_BLOCKS} x {forwards}")
-    return n, at
+    return n, at, (pcm30[:8], ids8)
 
 
 def phase5b_semantic_m_goldens(dev, tmp, at, keep):
@@ -780,7 +812,7 @@ def phase3c_decode_kernels(dev):
     """K5, K6 and K7 against their plain versions at the decode paths'
     shapes, in bf16 (the default stage dtype) and f32 (the parity path)."""
     res = {"flash_attention_plain": {}, "decode_attention": {}, "decode_qkv": {},
-           "decode_ffn": {}}
+           "decode_ffn": {}, "decode_ffn_tp": {}}
 
     def record(name, dt, B, err, ms, plain_ms, flops, moved, library_ms=None):
         r = res[name]
@@ -880,8 +912,15 @@ def phase3c_decode_kernels(dev):
             wi, w2 = _randn(dev, (4 * C, C), dt, 16, 0.02), _randn(dev, (C, 4 * C), dt, 17, 0.02)
             qkv_args = (x, ln1, None, wqkv, None)
             ffn_args = (x, a, wo, ln2, None, wi, w2)
+            # a tp=2 rank's shard: half of a's columns and of the MLP's
+            tp_w = (wo[:, :C // 2].contiguous(), wi[:2 * C].contiguous(),
+                    w2[:, :2 * C].contiguous())
+            tp_args = (x, a[:, :C // 2].contiguous(), tp_w[0], ln2, None, tp_w[1], tp_w[2],
+                       _one_rank)
             for name, fn, plain, args in (("decode_qkv", decode_qkv, decode_qkv_plain, qkv_args),
-                                          ("decode_ffn", decode_ffn, decode_ffn_plain, ffn_args)):
+                                          ("decode_ffn", decode_ffn, decode_ffn_plain, ffn_args),
+                                          ("decode_ffn_tp", decode_ffn_tp, decode_ffn_tp_plain,
+                                           tp_args)):
                 err = _compare(f"K7 {name}", fn(*args), plain(*args), dt)
                 if dt == torch.float32:
                     res[name]["max_abs_err"] = max(res[name].get("max_abs_err", 0.0), err)
@@ -903,8 +942,13 @@ def phase3c_decode_kernels(dev):
                 say(f"[3c] K6 decode_attention B=8, slot 1023 {dt}, chained after decode_qkv: "
                     f"max|kernel-plain| {err:.3e}")
             if dt == torch.bfloat16:
-                _k7_cold(dev, res, x, a, ln1, ln2, (wqkv,), (wo, wi, w2))
+                _k7_cold(dev, res, x, a, ln1, ln2, (wqkv,), (wo, wi, w2), tp_args[1], tp_w)
     return res
+
+
+def _one_rank(s):
+    """decode_ffn_tp's all-reduce on a world of one: the identity."""
+    return s
 
 
 def _weight_sets(dev, first, seed):
@@ -917,33 +961,40 @@ def _weight_sets(dev, first, seed):
                             for w in first) for _ in range(n - 1)]
 
 
-def _k7_cold(dev, res, x, a, ln1, ln2, qkv_w, ffn_w):
+def _k7_cold(dev, res, x, a, ln1, ln2, qkv_w, ffn_w, a_tp, tp_w):
     """K7 in bf16 timed cold (each call reads weights no other call of the
     queue read since they left the L2), beside its plain version and the
     unfused chain of PyTorch calls for the same function (which the port
-    never calls), all under the same condition; and warm, one weight set."""
+    never calls), all under the same condition; and warm, one weight set.
+    ``a_tp`` and ``tp_w``: a tp=2 rank's shard, for decode_ffn_tp."""
     B, C = x.shape
     chain_qkv = lambda w: F.linear(F.layer_norm(x, (C,), ln1, None, 1e-5), w)  # noqa: E731
 
-    def chain_ffn(wo, wi, w2):
-        x1 = F.linear(a, wo) + x
-        return F.linear(F.gelu(F.linear(F.layer_norm(x1, (C,), ln2, None, 1e-5), wi)), w2) + x1
+    def chain(a):
+        def run(wo, wi, w2):
+            x1 = F.linear(a, wo) + x
+            return F.linear(F.gelu(F.linear(F.layer_norm(x1, (C,), ln2, None, 1e-5), wi)),
+                            w2) + x1
+        return run
 
     qkv = lambda fn: lambda w: fn(x, ln1, None, w)  # noqa: E731
     ffn = lambda fn: lambda wo, wi, w2: fn(x, a, wo, ln2, None, wi, w2)  # noqa: E731
-    for name, first, kern, plain, chain in (
+    tp = lambda fn: lambda wo, wi, w2: fn(x, a_tp, wo, ln2, None, wi, w2, _one_rank)  # noqa: E731
+    for name, first, kern, plain, chain_fn in (
             ("decode_qkv", qkv_w, qkv(decode_qkv), qkv(decode_qkv_plain), chain_qkv),
-            ("decode_ffn", ffn_w, ffn(decode_ffn), ffn(decode_ffn_plain), chain_ffn)):
+            ("decode_ffn", ffn_w, ffn(decode_ffn), ffn(decode_ffn_plain), chain(a)),
+            ("decode_ffn_tp", tp_w, tp(decode_ffn_tp), tp(decode_ffn_tp_plain), chain(a_tp))):
         sets = _weight_sets(dev, first, len(first) * 1000 + B)
         cold = {k: cold_ms([lambda f=f, ws=ws: f(*ws) for ws in sets])
-                for k, f in (("kernel", kern), ("plain", plain), ("chain", chain))}
+                for k, f in (("kernel", kern), ("plain", plain), ("chain", chain_fn))}
         warm = device_ms(lambda: kern(*first))
         # the weights read once, the rows in and out; 2 B x (weights) operations
         flops = 2 * B * sum(w.numel() for w in first)
         moved = (nbytes(x, ln1, *first) + 3 * nbytes(x) if name == "decode_qkv"
-                 else nbytes(x, a, ln2, *first) + nbytes(x))
+                 else nbytes(x, a if name == "decode_ffn" else a_tp, ln2, *first) + nbytes(x))
         b = bound(flops, moved, "bf16")
-        say(f"[3c] K7 {name} B={B}, 768 wide bf16, weights cold ({len(sets)} sets, "
+        shard = ", a tp=2 rank's shard" if name == "decode_ffn_tp" else ""
+        say(f"[3c] K7 {name} B={B}, 768 wide{shard} bf16, weights cold ({len(sets)} sets, "
             f"{len(sets) * nbytes(*first) / 2**20:.0f} MiB): kernel {cold['kernel']:.4f} ms  plain "
             f"{cold['plain']:.4f} ms  chain of PyTorch calls {cold['chain']:.4f} ms  bound "
             f"{b['bound_ms']:.4f} ms ({b['bound_by']}); weights warm: kernel {warm:.4f} ms")
@@ -1086,19 +1137,7 @@ def phase5c_decode_goldens(dev):
     with dec.ar_policy.numerics():
         tokens = dec.gpt.generate_batch(prompts, max_new_tokens=96, temperature=0.8, top_k=1,
                                         stop_token=stop, seed=0)
-    failures = []
-    for i, (row, ref, margin) in enumerate(zip(tokens, g["tokens"], g["margins"])):
-        diff = np.flatnonzero(row != ref)
-        if not diff.size:
-            say(f"[5c] AR row {i}: {int((ref >= 0).sum())} greedy tokens equal to the golden")
-            continue
-        j = int(diff[0])
-        if margin[j] < GOLDEN_MARGIN:
-            say(f"[5c] AR row {i}: first difference at step {j}, golden top-1/top-2 margin "
-                f"{margin[j]:.3e} < {GOLDEN_MARGIN}: a near-tie; row stopped there")
-        else:
-            failures.append(f"AR row {i} step {j} (margin {margin[j]:.3e})")
-            say(f"[5c] AR row {i}: differs at step {j}, margin {margin[j]:.3e} FAIL")
+    failures = _ar_rows_gate("5c", tokens, g)
 
     with dec.fine_policy.numerics():
         fine = dec.bark.generate_fine_batch(g["coarse"], temperature=None, seed=0)
@@ -1124,6 +1163,26 @@ def phase5c_decode_goldens(dev):
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError("decode golden gate failed: " + "; ".join(failures))
+
+
+def _ar_rows_gate(tag, tokens, g):
+    """The greedy AR rows against the decode golden ``g``: equal, or first
+    different at a step whose golden top-1/top-2 margin is below
+    ``GOLDEN_MARGIN`` -> the failures."""
+    failures = []
+    for i, (row, ref, margin) in enumerate(zip(tokens, g["tokens"], g["margins"])):
+        diff = np.flatnonzero(row != ref)
+        if not diff.size:
+            say(f"[{tag}] AR row {i}: {int((ref >= 0).sum())} greedy tokens equal to the golden")
+            continue
+        j = int(diff[0])
+        if margin[j] < GOLDEN_MARGIN:
+            say(f"[{tag}] AR row {i}: first difference at step {j}, golden top-1/top-2 margin "
+                f"{margin[j]:.3e} < {GOLDEN_MARGIN}: a near-tie; row stopped there")
+        else:
+            failures.append(f"AR row {i} step {j} (margin {margin[j]:.3e})")
+            say(f"[{tag}] AR row {i}: differs at step {j}, margin {margin[j]:.3e} FAIL")
+    return failures
 
 
 def phase3d_attn_ablation(dev):
@@ -1929,6 +1988,337 @@ def phase6c_gpt_training(dev, tmp):
     del ts, sampler
     torch.cuda.empty_cache()
     say(f"[6c] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return loss_hi
+
+# --- phase 7: the mesh -------------------------------------------------------
+
+MESH_RANKS = 2  # ranks of 7b/7c, two processes sharing the one card over gloo
+MESH_TRAIN_STEPS = 3
+# 7b's losses and 7c's features against world 1, under "highest": the
+# shards sum the same products in another order (measured 1.9e-6 and
+# 7.7e-6 on the H100), far below what a wrong shard moves
+MESH_LOSS_ATOL = 1e-4
+MESH_FEATURE_ATOL = 1e-4
+MESH_TIMEOUT = 300.0  # seconds the spawned world may take
+
+
+def _median_wall(fn, reps=3):
+    """(median wall in s, last result) of ``fn`` over ``reps`` runs of
+    :func:`_timed`."""
+    runs = [_timed(fn) for _ in range(reps)]
+    return statistics.median(wall for _, wall in runs), runs[-1][0]
+
+
+def _collective_probe(dev):
+    """Each collective the mesh layer calls, on a tensor of ``dev`` over the
+    default group -> {op: "ok" or the error}."""
+    import torch.distributed as dist
+
+    x = torch.full((4,), float(dist.get_rank() + 1), device=dev)
+    ops = {
+        "all_reduce_sum": lambda: dist.all_reduce(x.clone()),
+        "all_reduce_max": lambda: dist.all_reduce(x.clone(), op=dist.ReduceOp.MAX),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(dist.get_world_size())], x),
+    }
+    res = {}
+    for name, fn in ops.items():
+        try:
+            fn()
+            res[name] = "ok"
+        except (RuntimeError, ValueError) as e:
+            res[name] = f"{type(e).__name__}: {str(e)[:100]}"
+    return res
+
+
+def _pcm8():
+    """8 x 30 s of 24 kHz int16 noise, the batch phase 7 times."""
+    x = np.random.default_rng(7).standard_normal((8, 30 * SR)) * 3000
+    return x.clip(-32768, 32767).astype(np.int16)
+
+
+def _semantic_m_ids(feats, codebook):
+    """Conformer features -> VQ ids, as ``Wav2VecBertEncoder._forward``."""
+    with torch.inference_mode(), get_policy("highest").numerics():
+        f = F.layer_norm(feats, feats.shape[-1:], eps=1e-5)
+        return nearest_centroid(f, codebook).to(torch.int16).cpu().numpy()
+
+
+def phase7_rank(pcm_m, prompts, stop):
+    """One rank of 7b/7c, on the card with its peer, over gloo: the dp=2
+    acoustic encode of the battery, the tp=2 sampler on the golden prompts,
+    TrainStep at (dp 1, tp 2) and (dp 2, tp 1), the tp=2 conformer on
+    ``pcm_m``; then, after the kernel counts are read, K7's decode_ffn_tp
+    against its plain version on the sampler's shard. Returns its results,
+    walls, shard shapes, kernel counts and that comparison."""
+    from audiotoken_tpu_torch.configs import Wav2VecBertConfig, Wav2VecBertDecoderConfig
+    from audiotoken_tpu_torch.nn.conformer import W2VBertConfig, W2VBertFeatures
+    from audiotoken_tpu_torch.nn.fbank import FbankConfig, fbank_features
+    from audiotoken_tpu_torch.parallel.mesh import make_mesh
+    from audiotoken_tpu_torch.parallel.shard import conformer_param_spec, shard_tree
+    from audiotoken_tpu_torch.weights import get_w2vbert_params, w2vbert_from_numpy
+
+    out = {}
+    with get_policy("highest").numerics():
+        reset_counts()
+        mesh = make_mesh(("dp",), device="cuda")
+        dev = mesh.device
+        out["gloo_cuda"] = _collective_probe(dev)
+        enc = AcousticEncoder(weights="random", seed=0, device="cuda", mesh=mesh)
+        audio, _lengths, _names = battery(SR)
+        out["codes"] = enc(audio)
+        pcm = _pcm8()
+        enc(pcm)  # warm-up
+        out["acoustic_wall"], _ = _median_wall(lambda: enc(pcm))
+        del enc
+
+        mesh = make_mesh(("dp", "tp"), (1, MESH_RANKS), device="cuda")
+        dcfg = Wav2VecBertDecoderConfig
+        params, gcfg = get_semantic_gpt_params("random", 0, dict(dcfg.model_artifacts)[
+            COMMONS.HI], dcfg.vocab.vocab_size)
+        model = _module_from_state(GPT, gcfg, gpt_from_numpy(params), dev, torch.float32)
+        del params
+        sampler = GPTSampler(model, mesh=mesh)
+        del model
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["tokens"] = sampler.generate_batch(prompts, max_new_tokens=96, temperature=0.8,
+                                               top_k=1, stop_token=stop, seed=0)
+        torch.cuda.synchronize()
+        out["sampler_wall"] = time.perf_counter() - t0
+        out["decode_steps"] = sampler.decode_steps
+        out["sampler_shapes"] = {"qkv": tuple(sampler.model.layers[0].qkv.weight.shape),
+                                 "heads": sampler.model.n_head,
+                                 "wte": tuple(sampler.model.wte.shape)}
+        layer0 = [None if t is None else t.detach().clone()
+                  for t in sampler.model.decode_weights()[0]]
+        del sampler
+        torch.cuda.empty_cache()
+
+        cfg = GPTConfig()
+        params, _ = get_semantic_gpt_params("random", 0, "gpt_semantic_s_en", cfg.vocab_size)
+        rng = np.random.default_rng(0)  # phase 6c's batch
+        idx = rng.integers(0, cfg.vocab_size, (GPT_B, GPT_T))
+        targets = np.roll(idx, -1, axis=1)
+        targets[:, -1] = -1
+        out["train"] = {}
+        for shape in ((1, MESH_RANKS), (MESH_RANKS, 1)):
+            mesh = make_mesh(("dp", "tp"), shape, device="cuda")
+            ts = TrainStep(cfg, params=params, device="cuda", precision="highest", mesh=mesh)
+            losses, walls = [], []
+            for _ in range(MESH_TRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(ts.step(idx, targets)))
+                walls.append(time.perf_counter() - t0)
+            out["train"][shape] = {"losses": losses, "walls": walls,
+                                   "mlp_in": tuple(ts.model.layers[0].mlp_in.weight.shape)}
+            del ts
+            torch.cuda.empty_cache()
+        del params
+
+        mesh = make_mesh(("dp", "tp"), (1, MESH_RANKS), device="cuda")
+        wcfg = Wav2VecBertConfig()
+        tree, _codebook = get_w2vbert_params("random", 0, wcfg)
+        local = shard_tree(tree, conformer_param_spec(tree), mesh, mesh.rank)
+        del tree
+        with torch.device("meta"):
+            model = W2VBertFeatures(W2VBertConfig(), wcfg.output_layer, mesh.axis("tp"))
+        model.load_state_dict(w2vbert_from_numpy(local, wcfg.output_layer), assign=True)
+        model = model.to(dev).eval().requires_grad_(False)
+        del local
+        x = torch.from_numpy(pcm_m).to(dev).float() * (1.0 / 32768.0)
+        mask = torch.ones(x.shape, device=dev)
+        with torch.inference_mode():
+            proc = fbank_features(x, mask, FbankConfig(), 2)
+            fwd = lambda: model(proc["input_features"], proc["attention_mask"])  # noqa: E731
+            fwd()
+            k4_before = flash_attention_relkey.launches
+            out["conformer_wall"], feats = _median_wall(fwd)
+        out["conformer_forwards"] = 3
+        out["k4_per_forward"] = (flash_attention_relkey.launches - k4_before) / 3
+        out["features"] = feats.cpu().numpy()
+        out["conformer_q"] = tuple(model.layers[0].attn.q.weight.shape)
+    out["counts"] = {k.__name__: k.launches for k in KERNELS}
+    out["ffn_tp_err"] = _ffn_tp_check(mesh.axis("tp"), layer0, len(prompts))
+    return out
+
+
+def _ffn_tp_check(tp, weights, B):
+    """K7's decode_ffn_tp with the all-reduce over ``tp`` on this rank's
+    shard ``weights`` (a decode layer's, :meth:`GPT.decode_weights`) at
+    ``B`` rows, against its plain version with the same all-reduce, in f32
+    and bf16 -> {dtype: max |kernel - plain|}; raises past ``_compare``'s
+    bound."""
+    from audiotoken_tpu_torch.parallel.collectives import all_reduce
+
+    _, _, _, _, wo, bo, ln_w, ln_b, wi, bi, w2, b2 = weights
+    reduce = functools.partial(all_reduce, axis=tp)
+    C, K = wo.shape
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = _randn(wo.device, (B, C), dt, 50)  # the residual stream: the same on every rank
+        a = _randn(wo.device, (B, K), dt, 51 + tp.index)  # the rank's attention columns
+        ws = [None if t is None else t.to(dt) for t in (wo, ln_w, ln_b, wi, w2, bo, bi, b2)]
+        args = (x, a, *ws[:5], reduce, *ws[5:])
+        errs[str(dt)] = _compare(f"K7 decode_ffn_tp, tp rank {tp.index}", decode_ffn_tp(*args),
+                                 decode_ffn_tp_plain(*args), dt)
+    return errs
+
+
+
+
+def phase7_mesh(dev, tmp, ids_s0, m8, loss_hi):
+    """The mesh: 7a world 1 over NCCL through the entry points' ``mesh=``;
+    7b/7c two ranks on the card over gloo; 7d what they print. Returns
+    rank 0's launches of decode_ffn_tp on the tp=2 sampler."""
+    import torch.distributed as dist
+
+    from audiotoken_tpu_torch.configs import Wav2VecBertDecoderConfig
+    from audiotoken_tpu_torch.parallel.launch import run_world
+    from audiotoken_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    pcm_m, ids_m8 = m8
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store7a", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(("dp",))
+        reset_counts()
+        at = AudioToken(Tokenizers.acoustic, num_codebooks=16, weights="random", mesh=mesh)
+        at.load_encoder()
+        audio, _lengths, _names = battery(SR)
+        codes = at.encoder(audio)
+        same = np.array_equal(codes, ids_s0)
+        pcm = _pcm8()
+        at.encoder(pcm)
+        wall_mesh, _ = _median_wall(lambda: at.encoder(pcm))
+        at.encoder.mesh = None  # the same encoder without its mesh, for the comparison
+        wall_plain, _ = _median_wall(lambda: at.encoder(pcm))
+        at.encoder.mesh = mesh
+        say(f"[7a] AudioToken(acoustic, mesh=make_mesh(('dp',))) on NCCL, world 1: battery "
+            f"codes {'equal' if same else 'DIFFERENT'} to phase 5's seed 0; B=8 x 30 s int16 "
+            f"RTFx {240 / wall_mesh:.1f} with the mesh, {240 / wall_plain:.1f} without")
+        if not same:
+            raise AssertionError("the acoustic battery through the mesh differs from phase 5")
+        del at
+        atm = AudioToken(Tokenizers.semantic_m, weights="random", mesh=mesh)
+        atm.load_encoder()
+        enc = atm.encoder
+        ids = enc(pcm_m)
+        same = np.array_equal(ids, ids_m8)
+        wall_mesh, _ = _median_wall(lambda: enc(pcm_m))
+        enc.mesh = None
+        wall_plain, _ = _median_wall(lambda: enc(pcm_m))
+        enc.mesh = mesh
+        say(f"[7a] AudioToken(semantic_m, mesh=...) B=8 x 30 s int16: ids "
+            f"{'equal' if same else 'DIFFERENT'} to phase 4b's; RTFx {240 / wall_mesh:.1f} with "
+            f"the mesh, {240 / wall_plain:.1f} without")
+        if not same:
+            raise AssertionError("semantic_m through the mesh differs from phase 4b")
+        counts = {k.__name__: k.launches for k in ACOUSTIC_KERNELS + (flash_attention_relkey,)}
+        say(f"[7a] kernel launches through the mesh entry points: {counts}")
+        if min(counts.values()) < 1:
+            raise AssertionError(f"a kernel did not launch through the mesh entry points: "
+                                 f"{counts}")
+        feats1, _ = enc.features(pcm_m[:2])
+        feats1 = feats1.float()
+        ids1 = _semantic_m_ids(feats1, enc.codebook)
+        codebook = enc.codebook
+        del atm, enc
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    say(f"[7a] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+    t0 = time.perf_counter()
+    g = np.load(os.path.join(HERE, "tests", "torch_goldens", "decode_semantic_m_s0.npz"))
+    vocab = Wav2VecBertDecoderConfig.vocab
+    prompts = [p[p >= 0] for p in g["prompts"]]
+    outs = run_world("chip_smoke:phase7_rank", MESH_RANKS,
+                     (pcm_m[:2], prompts, vocab.stop_token[COMMONS.ACOUSTIC]),
+                     backend="gloo", timeout=MESH_TIMEOUT)
+    say(f"[7b] {MESH_RANKS} ranks on the one card over gloo in {time.perf_counter() - t0:.1f} s "
+        f"(spawn included); gloo on CUDA tensors: {outs[0]['gloo_cuda']}")
+    for r, o in enumerate(outs):
+        refused = [op for op, v in o["gloo_cuda"].items() if v != "ok"]
+        if refused:
+            raise AssertionError(f"rank {r}: gloo refused {refused} on CUDA tensors")
+    failures = []
+    gold = np.load(os.path.join(parity.GOLD, "battery_acoustic.npz"))["ids_s0"]
+    _audio, _lengths, names = battery(SR)
+    for r, o in enumerate(outs):
+        c = o["codes"]
+        diff = int((c != ids_s0).sum())
+        per_case = (c.reshape(len(names), -1) == gold.reshape(len(names), -1)).mean(axis=1)
+        bad = [f"{n} {a:.6f}" for n, a in zip(names, per_case)
+               if a < parity.case_thresh("acoustic", n)]
+        say(f"[7b] rank {r}: dp=2 acoustic battery {c.shape}: {diff} codes differ from world 1 "
+            f"({'bit-equal' if not diff else 'not bit-equal'}); per-case contract "
+            f"{'ok' if not bad else 'FAIL ' + ', '.join(bad)}")
+        failures += [f"rank {r} battery {b}" for b in bad]
+    for r, o in enumerate(outs):
+        rows = _ar_rows_gate(f"7b rank {r} tp=2", o["tokens"], g)
+        failures += [f"rank {r} {f}" for f in rows]
+        if not np.array_equal(o["tokens"], outs[0]["tokens"]):
+            failures.append(f"rank {r}'s tokens differ from rank 0's")
+    for shape in ((1, MESH_RANKS), (MESH_RANKS, 1)):
+        for r, o in enumerate(outs):
+            t = o["train"][shape]
+            gap = max(abs(a - b) for a, b in zip(t["losses"], loss_hi))
+            say(f"[7b] rank {r} TrainStep (dp {shape[0]}, tp {shape[1]}) B={GPT_B} x "
+                f"T={GPT_T}, 'highest': losses {' '.join(f'{v:.6f}' for v in t['losses'])}, "
+                f"largest gap to world 1 {gap:.3e} (<= {MESH_LOSS_ATOL}) "
+                f"{'ok' if gap <= MESH_LOSS_ATOL else 'FAIL'}; mlp_in shard {t['mlp_in']}")
+            if not gap <= MESH_LOSS_ATOL:
+                failures.append(f"rank {r} train {shape} loss gap {gap:.3e}")
+
+    feats = torch.from_numpy(outs[0]["features"]).to(dev)
+    err = (feats - feats1).abs().max().item()
+    ids_tp = _semantic_m_ids(feats, codebook)
+    agree = float((ids_tp == ids1).mean())
+    ok = agree >= parity.THRESH
+    say(f"[7c] tp=2 conformer, 2 x 30 s semantic_m: features max |tp - world 1| {err:.3e} "
+        f"(<= {MESH_FEATURE_ATOL}) {'ok' if err <= MESH_FEATURE_ATOL else 'FAIL'}; ids "
+        f"agreement {agree:.6f} (>= {parity.THRESH}) {'ok' if ok else 'FAIL'}; q shard "
+        f"{outs[0]['conformer_q']}")
+    if not err <= MESH_FEATURE_ATOL:
+        failures.append(f"tp conformer features {err:.3e} off world 1")
+    if not ok:
+        failures.append(f"tp conformer ids {agree:.6f}")
+    if not np.array_equal(outs[1]["features"], outs[0]["features"]):
+        failures.append("the tp ranks' conformer features differ")
+
+    for r, o in enumerate(outs):
+        n = o["counts"]
+        steps = o["decode_steps"]
+        say(f"[7d] rank {r} launches: K4 {n['flash_attention_relkey']} "
+            f"({o['k4_per_forward']:.0f} a conformer forward), K6 {n['decode_attention']}, K7 "
+            f"decode_qkv {n['decode_qkv']}, decode_ffn_tp {n['decode_ffn_tp']} (decode_ffn "
+            f"{n['decode_ffn']}; {steps} decode steps); K1-K3 {n['seanet_front']}, "
+            f"{n['lstm_layer']}, {n['rvq_encode']}; shards: sampler {o['sampler_shapes']} (K6's "
+            f"cache holds the same heads); then K7 decode_ffn_tp with the all-reduce against "
+            f"its plain version, max |kernel - plain| "
+            + ", ".join(f"{dt} {e:.3e}" for dt, e in o["ffn_tp_err"].items()))
+        for name in ("flash_attention_relkey", "decode_attention", "decode_qkv",
+                     "decode_ffn_tp"):
+            if n[name] < 1:
+                failures.append(f"rank {r}: {name} was not launched")
+        if o["k4_per_forward"] < W2V_BLOCKS:
+            failures.append(f"rank {r}: K4 {o['k4_per_forward']} a forward < {W2V_BLOCKS}")
+        tr = {s: statistics.median(o["train"][s]["walls"][1:]) for s in o["train"]}
+        new = int((o["tokens"] >= 0).sum())
+        say(f"[7d] rank {r}, two processes sharing one card (not a scaling figure): dp=2 "
+            f"acoustic B=8 x 30 s (4 rows a rank) RTFx {240 / o['acoustic_wall']:.1f}; "
+            f"tp=2 sampler {new / o['sampler_wall']:.1f} tokens/s over "
+            f"{o['sampler_wall']:.2f} s; TrainStep "
+            + ", ".join(f"(dp {a}, tp {b}) {w * 1e3:.0f} ms a step, "
+                        f"{GPT_B * GPT_T / w:.0f} tokens/s" for (a, b), w in tr.items())
+            + f"; tp=2 conformer 2 x 30 s RTFx {60 / o['conformer_wall']:.1f}")
+    if failures:
+        raise AssertionError("phase 7 failed: " + "; ".join(failures))
+    say(f"[7] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return outs[0]["counts"]["decode_ffn_tp"]
+
 
 
 def main():
@@ -1953,7 +2343,7 @@ def main():
         phase5f_precision_ladder(dev, "acoustic", keep)
         del keep
         phase6a_converters(dev, tmp, ids_s0)
-        counts["flash_attention_relkey"], at = phase4b_semantic_m(dev, tmp)
+        counts["flash_attention_relkey"], at, m8 = phase4b_semantic_m(dev, tmp)
         keep = {}
         phase5b_semantic_m_goldens(dev, tmp, at, keep)
         phase5f_precision_ladder(dev, "semantic_m", keep)
@@ -1971,7 +2361,8 @@ def main():
         torch.cuda.empty_cache()
         counts["flash_attention_relkey_vq"], res["flash_attention_relkey_vq"] = \
             phase6b_quantizer(dev, tmp, c)
-        phase6c_gpt_training(dev, tmp)
+        loss_hi = phase6c_gpt_training(dev, tmp)
+        counts["decode_ffn_tp"] = phase7_mesh(dev, tmp, ids_s0, m8, loss_hi)
     decode_counts = phase4c_decode(dev)
     phase5c_decode_goldens(dev)
     say(f"[4c] K2 launches in the acoustic decoder: {decode_counts.pop('lstm_layer')}")
@@ -1994,6 +2385,9 @@ def main():
         ("decode_qkv", "decode_qkv", "audiotoken_tpu_torch/csrc/decode_step.cu",
          "audiotoken_tpu/ops/decode_step_fused.py:108"),
         ("decode_ffn", "decode_ffn", "audiotoken_tpu_torch/csrc/decode_step.cu",
+         "audiotoken_tpu/ops/decode_step_fused.py:131"),
+        # K7's decode_ffn again, split for tensor parallelism (phase 7's tp=2 sampler)
+        ("decode_ffn_tp", "decode_ffn_tp", "audiotoken_tpu_torch/csrc/decode_step.cu",
          "audiotoken_tpu/ops/decode_step_fused.py:131"),
         # K4 again, in its no-rel masked form on the semantic_s path
         ("flash_attention_norel", "flash_attention_norel",

@@ -18,6 +18,8 @@ The CUDA kernels are held against these plain versions on the card
 (tests/test_torch_kernels_cuda.py, chip_smoke.py).
 """
 
+import threading
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,6 +34,8 @@ from audiotoken_tpu_torch.ops.decode_attention import decode_attention, decode_a
 from audiotoken_tpu_torch.ops.decode_step import (
     decode_ffn,
     decode_ffn_plain,
+    decode_ffn_tp,
+    decode_ffn_tp_plain,
     decode_qkv,
     decode_qkv_plain,
 )
@@ -316,13 +320,92 @@ def test_k7_ffn_plain_matches_pallas(dt, bias):
     _close(out, ref, "decode_ffn", 1e-5, None if dt == "f32" else 2**-5)
 
 
+def _ffn_args(w):
+    return w["w_out"], w["ln2_w"], w["ln2_b"], w["w_in"], w["w_out2"]
+
+
+def _ffn_biases(w):
+    return w["b_out"], w["b_in"], w["b_out2"]
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_k7_ffn_tp_plain_on_one_rank_is_decode_ffn(dt, bias):
+    """With whole weights and ``reduce`` the identity, the tp entry's plain
+    version is decode_ffn's, bit for bit."""
+    w, x, a = _k7_weights(DTYPES[dt][0], bias)
+    out = decode_ffn_tp_plain(x, a, *_ffn_args(w), lambda s: s, *_ffn_biases(w))
+    assert torch.equal(out, decode_ffn_plain(x, a, *_ffn_args(w), *_ffn_biases(w)))
+
+
+def _ffn_shard(w, a, r, n):
+    """Rank r of n's decode_ffn_tp operands: its columns of a and of w_out's
+    input, its block of w_in (and b_in) and the matching columns of w_out2."""
+    c, h = slice(r * C7 // n, (r + 1) * C7 // n), slice(r * 4 * C7 // n, (r + 1) * 4 * C7 // n)
+    b_in = None if w["b_in"] is None else w["b_in"][h]
+    return (a[:, c], w["w_out"][:, c], w["ln2_w"], w["ln2_b"], w["w_in"][h], w["w_out2"][:, h],
+            w["b_out"], b_in, w["b_out2"])
+
+
+def _ranks_in_threads(n, body):
+    """``body(rank, reduce)`` on n threads, ``reduce`` summing the ranks'
+    f32 tensors in rank order, as an all-reduce -> the n results."""
+    parts, barrier, out = {}, threading.Barrier(n, timeout=60), [None] * n
+
+    def run(r):
+        calls = iter(range(1 << 30))
+
+        def reduce(s):
+            key = next(calls)
+            parts[key, r] = s
+            barrier.wait()
+            total = parts[key, 0]
+            for i in range(1, n):
+                total = total + parts[key, i]
+            barrier.wait()
+            return total
+
+        out[r] = body(r, reduce)
+
+    threads = [threading.Thread(target=run, args=(r,), daemon=True) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    return out
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_k7_ffn_tp_plain_on_two_ranks_matches_pallas(dt, bias):
+    """Each of two ranks' decode_ffn_tp on its shard, the sums all-reduced
+    between, against JAX's whole decode_ffn (Pallas, interpret mode); the
+    ranks agree bit for bit."""
+    tdt, jdt = DTYPES[dt]
+    w, x, a = _k7_weights(tdt, bias)
+
+    def rank(r, reduce):
+        shard = _ffn_shard(w, a, r, 2)
+        return decode_ffn_tp(x, *shard[:6], reduce, *shard[6:])
+
+    outs = _ranks_in_threads(2, rank)
+    assert torch.equal(outs[0], outs[1]) and outs[0].dtype == tdt
+    ref = jax_decode_ffn(_j(x, jdt), _j(a, jdt), _j(w["w_out"], jdt, True), _j(w["ln2_w"], jdt),
+                         _j(w["ln2_b"], jdt), _j(w["w_in"], jdt, True),
+                         _j(w["w_out2"], jdt, True), _j(w["b_out"], jdt), _j(w["b_in"], jdt),
+                         _j(w["b_out2"], jdt), interpret=True)
+    _close(outs[0], ref, "decode_ffn_tp", 1e-5, None if dt == "f32" else 2**-5)
+
+
 def test_k7_cpu_wrappers_run_plain_and_count_no_launch():
     w, x, a = _k7_weights(torch.float32, True)
-    before = (decode_qkv.launches, decode_ffn.launches)
+    before = (decode_qkv.launches, decode_ffn.launches, decode_ffn_tp.launches)
     qkv = decode_qkv(x, w["ln1_w"], w["ln1_b"], w["w_qkv"], w["b_qkv"])
     y = decode_ffn(x, a, w["w_out"], w["ln2_w"], w["ln2_b"], w["w_in"], w["w_out2"],
                    w["b_out"], w["b_in"], w["b_out2"])
-    assert (decode_qkv.launches, decode_ffn.launches) == before
+    y_tp = decode_ffn_tp(x, a, *_ffn_args(w), lambda s: s, *_ffn_biases(w))
+    assert (decode_qkv.launches, decode_ffn.launches, decode_ffn_tp.launches) == before
+    assert torch.equal(y_tp, y)
     assert torch.equal(qkv, decode_qkv_plain(x, w["ln1_w"], w["ln1_b"], w["w_qkv"], w["b_qkv"]))
     assert y.shape == (B7, C7)
 
@@ -342,3 +425,5 @@ def test_wrappers_refuse_other_devices():
         decode_qkv(x, x[0], None, w)
     with pytest.raises(ValueError, match="unsupported device"):
         decode_ffn(x, x, w, x[0], None, w, w)
+    with pytest.raises(ValueError, match="unsupported device"):
+        decode_ffn_tp(x, x, w, x[0], None, w, w, lambda s: s)

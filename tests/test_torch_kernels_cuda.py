@@ -499,6 +499,53 @@ def test_decode_step_matches_plain(dev, B, dt, bias):
     _assert_kernel_close(y, decode_ffn_plain(x, a, wo, ln2w, ln2b, wi, w2, bo, bi, b2), "K7", dt)
 
 
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B", [1, 8, 33])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_decode_ffn_tp_matches_plain(dev, tp, B, dt, bias):
+    """K7's tp entry on rank 0's shard of a 768-wide layer, ``reduce``
+    adding a fixed tensor for the other ranks' sums, against its plain
+    version; it counts one launch a call."""
+    from audiotoken_tpu_torch.ops.decode_step import decode_ffn_tp, decode_ffn_tp_plain
+
+    dtype, C = DECODE_DTYPES[dt], 768
+    K, H = C // tp, 4 * C // tp
+
+    def w(shape, seed, scale=0.02):
+        return _randn(dev, shape, dtype, seed, scale)
+
+    x, a = w((B, C), 30, 1.0), w((B, K), 31, 1.0)
+    lnw, lnb = 1 + w((C,), 32, 0.1), (w((C,), 33, 0.1) if bias else None)
+    wo, wi, w2 = w((C, K), 34), w((H, C), 35), w((C, H), 36)
+    bo, bi, b2 = (w((C,), 37), w((H,), 38), w((C,), 39)) if bias else (None,) * 3
+    others = _randn(dev, (B, C), torch.float32, 40, 0.5)
+    reduce = lambda s: s + others  # noqa: E731
+    before = decode_ffn_tp.launches
+    y = decode_ffn_tp(x, a, wo, lnw, lnb, wi, w2, reduce, bo, bi, b2)
+    torch.cuda.synchronize()
+    assert decode_ffn_tp.launches == before + 1
+    _assert_kernel_close(y, decode_ffn_tp_plain(x, a, wo, lnw, lnb, wi, w2, reduce, bo, bi, b2),
+                         "K7", dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B", [8, 40])
+def test_decode_ffn_tp_on_one_rank_is_decode_ffn(dev, B, dt):
+    """With whole weights and ``reduce`` the identity, K7's tp entry gives
+    decode_ffn's bits: the same products, and the same roundings."""
+    from audiotoken_tpu_torch.ops.decode_step import decode_ffn, decode_ffn_tp
+
+    dtype, C = DECODE_DTYPES[dt], 768
+    x, a = _randn(dev, (B, C), dtype, 1), _randn(dev, (B, C), dtype, 2)
+    lnw, lnb = 1 + _randn(dev, (C,), dtype, 3, 0.1), _randn(dev, (C,), dtype, 4, 0.1)
+    wo, wi, w2 = (_randn(dev, (C, C), dtype, 6, 0.02), _randn(dev, (4 * C, C), dtype, 7, 0.02),
+                  _randn(dev, (C, 4 * C), dtype, 8, 0.02))
+    bo, bi, b2 = (_randn(dev, (n,), dtype, 9 + i, 0.1) for i, n in enumerate((C, 4 * C, C)))
+    assert torch.equal(decode_ffn_tp(x, a, wo, lnw, lnb, wi, w2, lambda s: s, bo, bi, b2),
+                       decode_ffn(x, a, wo, lnw, lnb, wi, w2, bo, bi, b2))
+
+
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("C,H,N", [(40, 40, 24), (776, 3080, 136), (1000, 8192, 7),
                                    (1024, 4096, 2312)])
@@ -705,3 +752,39 @@ def test_corpus_on_the_card(dev, tmp_path):
                                       at.encode(str(tmp_path / f"c{i}.wav"), chunk_size=1.0)[0])
     assert at.encode_batch_files(batch_size=3, outdir=tmp_path / "out", chunk_size=1.0,
                                  audio_dir=tmp_path)["batches"] == 0
+
+
+@pytest.mark.parametrize("check", ["check_train_step", "check_dp_encode",
+                                   "check_attention_shard", "check_tp_sampler"])
+def test_mesh_checks_on_the_cards(dev, check):
+    """The four multi-device checks (``parallel/dryrun.py``) with a rank on
+    every card over NCCL, or two ranks sharing a single card over gloo:
+    K4 at heads 64 wide, K6 and K7 on the tp sampler's heads."""
+    from audiotoken_tpu_torch.ops import _build
+    from audiotoken_tpu_torch.parallel.launch import run_world
+
+    _build.library()  # built before any rank starts
+    cards = torch.cuda.device_count()
+    world, backend = (cards, "nccl") if cards > 1 else (2, "gloo")
+    outs = run_world(f"audiotoken_tpu_torch.parallel.dryrun:{check}", world, ("cuda",),
+                     backend=backend, timeout=600)
+    assert len(outs) == world
+
+
+def test_mesh_train_step_at_every_shape_on_the_cards(dev):
+    """Check 1 (``parallel/dryrun.py:check_train_step``) with every rank on
+    "dp", and at dp x 2 where the world allows (``train_shapes``): the dp
+    ranks' loss over the global count of valid targets and the gradient
+    all-reduce, over NCCL with a rank on every card, or two ranks sharing
+    a single card over gloo."""
+    from audiotoken_tpu_torch.ops import _build
+    from audiotoken_tpu_torch.parallel.dryrun import train_shapes
+    from audiotoken_tpu_torch.parallel.launch import run_world
+
+    _build.library()  # built before any rank starts
+    cards = torch.cuda.device_count()
+    world, backend = (cards, "nccl") if cards > 1 else (2, "gloo")
+    for shape in train_shapes(world)[1:]:
+        outs = run_world("audiotoken_tpu_torch.parallel.dryrun:check_train_step", world,
+                         ("cuda", shape), backend=backend, timeout=600)
+        assert [tuple(o["mesh"].values()) for o in outs] == [shape] * world

@@ -79,7 +79,10 @@ def test_decode_modules_are_checked(module):
     "audiotoken_tpu_torch/train/vq_train.py",
     "audiotoken_tpu_torch/train/gpt_train.py", "audiotoken_tpu_torch/train/cluster_diagnostics.py",
     "scripts/convert_real_torch.py", "scripts/precision_ladder_torch.py",
-    "scripts/bisect_precision_torch.py",
+    "scripts/bisect_precision_torch.py", "audiotoken_tpu_torch/parallel/mesh.py",
+    "audiotoken_tpu_torch/parallel/collectives.py", "audiotoken_tpu_torch/parallel/shard.py",
+    "audiotoken_tpu_torch/parallel/launch.py", "audiotoken_tpu_torch/parallel/dryrun.py",
+    "scripts/profile_mesh_torch.py",
 ])
 def test_new_modules_are_checked(path):
     """The semantic_s, profiling and corpus modules, and the scripts that
