@@ -5,9 +5,9 @@
 // pallas_call at :108) and the one-pass kernel (`onepass_kernel`, launched
 // by `run_onepass` at :157). They split the time of a non-causal attention
 // between its two dot products and its online softmax by taking parts of
-// the softmax out. Here they ablate K5's first design, which its f32 path
-// keeps (csrc/flash_attention_plain.cu: 64 query rows a block, 256
-// threads, f32 FMAs on tiles converted to f32 in shared memory), not the TPU
+// the softmax out. Here they ablate K5's first design (64 query rows a
+// block, 256 threads, f32 FMAs on tiles converted to f32 in shared
+// memory), not the TPU
 // kernel's 256/512 tiles and head groups, which Hopper's shared memory does
 // not hold. The `full` mode is that design whole, valid attention: an
 // ablation's time is subtracted from full's, never from K5's bf16 kernel on

@@ -403,7 +403,7 @@ extern "C" int flash_attention_relkey_f32(const float* q, const float* k, const 
   return launch<false>(q, k, v, E, mask, out, BH, H, T, P, left, stream);
 }
 
-// K5's f32 path (csrc/flash_attention_plain.cu has its bf16 path): the same
+// K5's f32 path (csrc/flash_attention_bf16.cu has its bf16 path): the same
 // kernel with no rel term, no mask and q pre-scaled, softmax(q k^T) v.
 // q, k, v, out [BH, T, 64] f32.
 extern "C" int flash_attention_plain_f32(const float* q, const float* k, const float* v,

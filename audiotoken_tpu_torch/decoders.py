@@ -8,6 +8,9 @@ and K7 in its decode step), Bark-fine fills codebooks 3..8 (kernel K5 in
 its attention), and the acoustic decoder renders them at 6 kbps.
 """
 
+import contextlib
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -25,7 +28,7 @@ from .nn.bark_fine import BarkFine, BarkFineGenerator
 from .nn.gpt import GPT, GPTSampler
 from .nn.rvq import rvq_decode
 from .nn.seanet import SeanetConfig, SeanetDecoder
-from .runtime.precision import get_policy
+from .runtime.precision import get_policy, tf32_numerics
 from . import weights as weight_store
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -178,6 +181,7 @@ class _SemanticDecoderBase:
         self.acoustic_decoder = AcousticDecoder(
             config=AcousticDecoderConfig(bandwidth=6.0), weights=weights,
             precision=precision, seed=seed, device=self.device, output_dtype=output_dtype)
+        self._side_stream = None  # pipeline_batch's stream for the fine stage
 
     def _deserialize(self, tokens: np.ndarray) -> np.ndarray:
         """Interleaved coarse stream -> [2, T] codebook ids (the second
@@ -190,6 +194,10 @@ class _SemanticDecoderBase:
     def __call__(self, input_batch: np.ndarray, seed: Optional[int] = None) -> np.ndarray:
         return self.decode_batch([np.asarray(input_batch).reshape(-1)], seed=seed)[0]
 
+    #: seed stride between the chunks of ``pipeline_batch`` (the JAX
+    #: package's ``_CHUNK_SEED_STRIDE``)
+    _CHUNK_SEED_STRIDE = 1_000_003
+
     def decode_batch(self, sources, seed: Optional[int] = None,
                      pipeline_batch: Optional[int] = None):
         """Decode several semantic-id sequences together -> a list of
@@ -197,16 +205,60 @@ class _SemanticDecoderBase:
         ``output_dtype="int16"``). All three stages batch across the
         sources; the AR stage keeps per-row stop bookkeeping.
 
-        ``pipeline_batch`` (overlapping one chunk's AR loop with the previous
-        chunk's fine and EnCodec stages) is not ported: it raises when set
-        and exceeded."""
+        ``pipeline_batch``: when set and ``len(sources)`` exceeds it, the
+        sources go in chunks of that size through a two-deep pipeline: chunk
+        i+1's AR loop (host-bound, with gaps on the device) runs while one
+        worker thread runs chunk i's fine stage, on a CUDA stream of its
+        own. Chunk i samples with ``seed + 1_000_003 * i``, so the output
+        equals per-chunk ``decode_batch(chunk_i, seed=...)`` calls."""
         seed = self.seed if seed is None else seed
         if pipeline_batch and len(sources) > int(pipeline_batch):
-            raise NotImplementedError(
-                "pipeline_batch: the two-deep decode pipeline is ported only behind "
-                "a measurement on the GPU; call decode_batch per chunk instead")
+            return self._decode_pipelined(sources, seed, int(pipeline_batch))
         coarse_rows = self._ar_stage(sources, seed)
         return self._finish_stage(coarse_rows, seed)
+
+    def _decode_pipelined(self, sources, seed: int, chunk: int):
+        """Chunk i+1's AR stage on this thread while one worker thread runs
+        chunk i's fine stage; then chunk i's acoustic stage on this thread,
+        the worker idle, before chunk i+1's fine stage goes to the worker. A
+        failure in the worker raises here.
+
+        The TF32 switches are process-wide, and each stage's region restores
+        what it found. So the two stages that overlap run inside one region
+        of the AR stage's setting: where the fine stage's is the same, every
+        region either thread opens finds and restores it; where it differs,
+        the two stages take turns. The stages hand each other host arrays,
+        so no tensor crosses from one stream to the other."""
+        chunks = [sources[i: i + chunk] for i in range(0, len(sources), chunk)]
+        same = self.ar_policy.allow_tf32 == self.fine_policy.allow_tf32
+        turns = contextlib.nullcontext() if same else threading.Lock()
+        wavs, fut = [], None
+        with tf32_numerics(self.ar_policy.allow_tf32), ThreadPoolExecutor(max_workers=1) as pool:
+            for i, ch in enumerate(chunks):
+                s = seed + self._CHUNK_SEED_STRIDE * i
+                with turns:
+                    coarse_rows = self._ar_stage(ch, s)
+                if fut is not None:
+                    wavs += self._acoustic_stage(*fut.result())
+                fut = pool.submit(self._fine_on_side_stream, coarse_rows, s, turns)
+            wavs += self._acoustic_stage(*fut.result())
+        return wavs
+
+    def _fine_on_side_stream(self, coarse_rows, seed: int, turns):
+        """:meth:`_fine_stage` from the worker thread, inside ``turns``: on
+        CUDA, on the decoder's card and a stream of its own (the kernels
+        launch on the current stream), after the work queued on the card's
+        default stream."""
+        with turns:
+            dev = self.device
+            if dev.type != "cuda":
+                return self._fine_stage(coarse_rows, seed)
+            with torch.cuda.device(dev):
+                if self._side_stream is None:
+                    self._side_stream = torch.cuda.Stream(dev)
+                self._side_stream.wait_stream(torch.cuda.default_stream(dev))
+                with torch.cuda.stream(self._side_stream):
+                    return self._fine_stage(coarse_rows, seed)
 
     def _ar_stage(self, sources, seed: int):
         """sources -> per-row [2, T] coarse codebook ids."""
@@ -250,10 +302,13 @@ class _SemanticDecoderBase:
             return self.bark.generate_fine_batch(coarse, seed=seed), lens
 
     def _finish_stage(self, coarse_rows, seed: int):
-        """coarse rows -> waveforms: the fine stage, then the acoustic
-        decoder through ``forward_codes`` (so its sub-batch split applies),
-        each row trimmed to its own length."""
-        fine, lens = self._fine_stage(coarse_rows, seed)
+        """coarse rows -> waveforms: the fine stage, then the acoustic one."""
+        return self._acoustic_stage(*self._fine_stage(coarse_rows, seed))
+
+    def _acoustic_stage(self, fine, lens):
+        """fine codes [B, 8, T_max] and row lengths -> waveforms: the
+        acoustic decoder through ``forward_codes`` (so its sub-batch split
+        applies), each row trimmed to its own length."""
         wav = self.acoustic_decoder.forward_codes(fine).cpu().numpy()  # [B, T_max*hop]
         hop = self.acoustic_decoder.hop
         return [wav[i].reshape(1, -1)[:, : n * hop] for i, n in enumerate(lens)]

@@ -12,10 +12,18 @@ TPU kernel's multi-pass ``Precision.HIGHEST`` dots do.
 :func:`flash_attention_relkey_plain` is the same function written the
 direct way, with full scores and a gather for the rel term.
 
+Given bf16 q, k and v, K4 computes what the Pallas body computes in bf16:
+bf16 operands for q k^T and q E^T (E rounded to bf16) with f32
+accumulation, f32 scores and softmax, p rounded to bf16 before the value
+product, a bf16 result. Its CUDA kernel (:func:`flash_attention_relkey_bf16`)
+is K5's bf16 kernel with K4's terms, ``csrc/flash_attention_bf16.cu``. With
+neither term and ``T`` a multiple of :data:`K_TILE` the JAX package takes
+``_flash_attention_plain`` in both dtypes, and so the bf16 form takes K5.
+
 K5 (:func:`flash_attention_plain`) is the counterpart of
 ``_flash_attention_plain``: no bias, no mask, q pre-scaled, bf16 or f32.
-In bf16 it is a kernel of its own on the bf16 tensor cores
-(``csrc/flash_attention_plain.cu``); in f32 it is K4's 3xTF32 kernel
+In bf16 it runs on the bf16 tensor cores (``csrc/flash_attention_bf16.cu``,
+the kernel's instantiation without K4's terms); in f32 it is K4's 3xTF32 kernel
 without its terms and without scaling the scores again
 (``flash_attention_plain_f32`` in ``csrc/flash_attention.cu``).
 """
@@ -26,67 +34,127 @@ from . import _build
 from .attention import padding_bias
 
 #: head size the kernels are compiled for (csrc/flash_attention.cu,
-#: csrc/flash_attention_plain.cu)
+#: csrc/flash_attention_bf16.cu)
 KERNEL_DH = 64
+#: the JAX package's key tile: bf16 inputs with neither term and ``T`` a
+#: multiple of it take K5 (``audiotoken_tpu/ops/flash_attention.py:383``)
+K_TILE = 256
 
 
 def flash_attention_relkey_plain(q, k, v, dist_embedding=None, frame_mask=None,
                                  left: int = 64, right: int = 8):
-    """q, k, v [B, H, T, dh] f32; dist_embedding [left+right+1, dh] or None;
-    frame_mask [B, T] {0, 1} or None -> [B, H, T, dh] f32.
+    """q, k, v [B, H, T, dh] f32 or bf16; dist_embedding [left+right+1, dh]
+    or None; frame_mask [B, T] {0, 1} or None -> [B, H, T, dh] in q's dtype.
 
     ``softmax((q k^T + rel) / sqrt(dh) + padding_bias) v`` with
     ``rel[q, k] = (q E^T)[q, clamp(k - q + left, 0, P - 1)]``. ``None``
-    drops the rel term or the padding bias (the HuBERT form)."""
+    drops the rel term or the padding bias (the HuBERT form).
+
+    In bf16 it computes what the Pallas body does: both products on the
+    bf16 values (E rounded to bf16) summed in f32, the scale and the bias
+    in f32, ``p = exp(s - rowmax)`` and ``l = sum(p)`` in f32, then
+    ``acc = bf16(p) @ v`` in f32 and ``out = bf16(acc / max(l, 1e-30))``."""
     T, dh = q.shape[-2:]
-    s = torch.matmul(q, k.transpose(-1, -2))
+    bf16 = q.dtype == torch.bfloat16
+    qf, kf = (q.float(), k.float()) if bf16 else (q, k)
+    s = torch.matmul(qf, kf.transpose(-1, -2))
     if dist_embedding is not None:
         P = dist_embedding.shape[0]
         if P != left + right + 1:
             raise ValueError(f"dist_embedding has {P} rows, expected left + right + 1")
-        pos = torch.matmul(q, dist_embedding.t())  # [B, H, T, P]
+        E = dist_embedding.to(torch.bfloat16).float() if bf16 else dist_embedding
+        pos = torch.matmul(qf, E.t())  # [B, H, T, P]
         t = torch.arange(T, device=q.device)
         idx = (t[None, :] - t[:, None] + left).clamp(0, P - 1)  # [T (q), T (k)]
         s = s + pos[:, :, t[:, None], idx]
     s = s * dh**-0.5
     if frame_mask is not None:
         s = s + padding_bias(frame_mask)
-    return torch.matmul(torch.softmax(s, dim=-1), v)
+    if not bf16:
+        return torch.matmul(torch.softmax(s, dim=-1), v)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.matmul(p.to(torch.bfloat16).float(), v.float())
+    return (acc / l.clamp_min(1e-30)).to(torch.bfloat16)
 
 
 def flash_attention_relkey(q, k, v, dist_embedding=None, frame_mask=None,
                            left: int = 64, right: int = 8):
-    """The function of :func:`flash_attention_relkey_plain`. Launches K4 for
-    CUDA tensors (f32, contiguous, dh = 64) and runs the plain version for
-    CPU tensors."""
+    """The function of :func:`flash_attention_relkey_plain`. For CUDA
+    tensors (contiguous, dh = 64) it launches K4: the 3xTF32 kernel for f32
+    inputs, :func:`flash_attention_relkey_bf16` for bf16 ones; any other
+    dtype raises. For CPU tensors it runs the plain version. bf16 inputs
+    with neither term and ``T`` a multiple of :data:`K_TILE` take K5 on q
+    pre-scaled by dh^-0.5 in bf16, as the JAX package does."""
+    T, dh = q.shape[-2:]
+    if (q.dtype == torch.bfloat16 and dist_embedding is None and frame_mask is None
+            and T % K_TILE == 0):
+        return flash_attention_plain(q * dh**-0.5, k, v)
     if q.device.type == "cpu":
         return flash_attention_relkey_plain(q, k, v, dist_embedding, frame_mask, left, right)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_relkey: unsupported device {q.device}")
-    B, H, T, dh = q.shape
-    if dh != KERNEL_DH:
-        raise ValueError(f"flash_attention_relkey: head size {dh}, the kernel takes {KERNEL_DH}")
-    if left < 0 or right < 0:
-        raise ValueError(f"flash_attention_relkey: left {left}, right {right} must be >= 0")
-    dev = q.device
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _build.check_tensor(t, name, (B, H, T, dh), torch.float32, dev, vector_loads=True)
-    P = 0
-    if dist_embedding is not None:
-        P = left + right + 1
-        _build.check_tensor(dist_embedding, "dist_embedding", (P, dh), torch.float32, dev)
-    if frame_mask is not None:
-        _build.check_tensor(frame_mask, "frame_mask", (B, T), torch.float32, dev)
+    if q.dtype == torch.bfloat16:
+        return flash_attention_relkey_bf16(q, k, v, dist_embedding, frame_mask, left, right)
+    B, H = q.shape[:2]
+    P = _check_relkey(q, k, v, dist_embedding, frame_mask, left, right, torch.float32)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    _build.launch("flash_attention_relkey_f32", dev, q, k, v, dist_embedding, frame_mask,
+    _build.launch("flash_attention_relkey_f32", q.device, q, k, v, dist_embedding, frame_mask,
                   out, B * H, H, T, P, left)
     flash_attention_relkey.launches += 1
     return out
 
 
 flash_attention_relkey.launches = 0
+
+
+def _check_relkey(q, k, v, E, mask, left, right, dtype) -> int:
+    """Raise unless K4's kernel of ``dtype`` takes these CUDA tensors;
+    returns P (0 without the rel term)."""
+    B, H, T, dh = q.shape
+    if dh != KERNEL_DH:
+        raise ValueError(f"flash_attention_relkey: head size {dh}, the kernel takes {KERNEL_DH}")
+    if left < 0 or right < 0:
+        raise ValueError(f"flash_attention_relkey: left {left}, right {right} must be >= 0")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.check_tensor(t, name, (B, H, T, dh), dtype, q.device, vector_loads=True)
+    P = 0
+    if E is not None:
+        P = left + right + 1
+        _build.check_tensor(E, "dist_embedding", (P, dh), dtype, q.device,
+                            vector_loads=dtype == torch.bfloat16)
+    if mask is not None:
+        _build.check_tensor(mask, "frame_mask", (B, T), torch.float32, q.device)
+    return P
+
+
+def flash_attention_relkey_bf16(q, k, v, dist_embedding=None, frame_mask=None,
+                                left: int = 64, right: int = 8):
+    """K4 in bf16 (``csrc/flash_attention_bf16.cu``): the function of
+    :func:`flash_attention_relkey_plain` on CUDA bf16 q, k, v [B, H, T, 64]
+    (contiguous). ``dist_embedding`` is rounded to bf16 and ``frame_mask``
+    taken in f32, as the JAX package casts them. Runs the plain version for
+    CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_relkey_plain(q, k, v, dist_embedding, frame_mask, left, right)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_relkey_bf16: unsupported device {q.device}")
+    E = None if dist_embedding is None else dist_embedding.to(torch.bfloat16).contiguous()
+    mask = None if frame_mask is None else frame_mask.float().contiguous()
+    B, H, T, _ = q.shape
+    P = _check_relkey(q, k, v, E, mask, left, right, torch.bfloat16)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    _build.launch("flash_attention_relkey_bf16", q.device, q, k, v, E, mask, out,
+                  B * H, H, T, P, left)
+    flash_attention_relkey_bf16.launches += 1
+    return out
+
+
+flash_attention_relkey_bf16.launches = 0
 
 
 def noncausal_attention_plain(q, k, v):
@@ -108,7 +176,7 @@ def noncausal_attention_plain(q, k, v):
 def flash_attention_plain(q, k, v):
     """K5: the function of :func:`noncausal_attention_plain` (non-causal,
     no bias, no mask, q pre-scaled). Launches the bf16 kernel of
-    ``csrc/flash_attention_plain.cu`` or, in f32, K4's kernel of
+    ``csrc/flash_attention_bf16.cu`` or, in f32, K4's kernel of
     ``csrc/flash_attention.cu`` for CUDA tensors (contiguous, dh = 64) and
     runs the plain version for CPU tensors.
 

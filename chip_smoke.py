@@ -54,6 +54,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      sampled, 1024 new tokens), with wall time, real-time factor and AR
      tokens/s; K6 and each K7 entry launch 12 times per decode step, K5 24
      times per Bark-fine pass, and K2 runs in the acoustic decoder;
+  4f. ``decode_batch(..., pipeline_batch=8)`` of 16 sources of 250 ids
+     against two serial calls of 8 with the chunk seeds, in turns: AR
+     tokens and fine codes equal in every run, the fine stage on a CUDA
+     stream of its own when pipelined, and in each pipelined run K6 and
+     each K7 entry launched 12 times per decode step and K5 24 times per
+     fine pass; both walls and the waveforms' largest difference;
   5c. the decode golden gate at full width, f32 and ``highest``, against
      ``tests/torch_goldens/decode_semantic_m_s0.npz`` (made by the JAX
      package): greedy AR tokens, argmax fine codes, and the waveforms;
@@ -65,6 +71,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      softmax;
   3e. K4 in its no-rel masked form at the HuBERT shape [8, 12, 1499, 64]
      against its plain version and against SDPA with the padding bias;
+  3f. K4 on bf16 q, k, v (K5's bf16 kernel with K4's terms,
+     ``csrc/flash_attention_bf16.cu``): the public op once with the rel
+     term and a mask at [8, 16, 1500, 64] and once with the mask alone at
+     [8, 12, 1499, 64], its launches counted over those two calls (no
+     entry path reaches this form), then each against its plain version
+     with both times, the bound in bf16 operations, and SDPA with the mask
+     as a boolean ``attn_mask`` beside the mask-only form. E is drawn large
+     enough that the plain version without the rel term, with the band
+     shifted by one, or clamped one step inside either edge, lies at least
+     ten times the gate away; the form with neither term at T = 1024 must
+     launch K5 and not K4;
   4d. the semantic_s main path: ``AudioToken(Tokenizers.semantic_s)``
      encode of WAV files (one of 90 s, in 30 s chunks), then
      ``HubertEncoder`` at 8 and 32 x 30 s of int16 PCM in both attention
@@ -155,7 +172,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      ``decode_ffn_tp`` against its plain version with the same
      all-reduce at the sampler's shard shapes; shard shapes, and ms a
      step, tokens/s and RTFx of the two processes sharing one card, which
-     are not a scaling figure.
+     are not a scaling figure; 7e, ``encode_batch_files`` of phase 4e's
+     corpus on the world-1 mesh over NCCL (files bit-equal to 4e's B=8
+     files) and on the dp=2 mesh of the two gloo ranks (rank 0 reads,
+     broadcasts and writes; each file under the acoustic per-case contract
+     of world 1's, the count of differing codes printed), K1-K3 launched
+     in the world-1 run and on each gloo rank.
 
 Every kernel entry carries ``bound_ms``, the least time the card could take
 for the same work: the larger of its operations over the H100's peak for
@@ -236,6 +258,7 @@ from audiotoken_tpu_torch.ops.decode_step import (  # noqa: E402
 from audiotoken_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_plain,
     flash_attention_relkey,
+    flash_attention_relkey_bf16,
     flash_attention_relkey_plain,
     noncausal_attention_plain,
 )
@@ -270,10 +293,13 @@ RVQ_AGREEMENT = 0.999  # K3: late-codebook near-ties may flip (RVQ contract)
 ACOUSTIC_KERNELS = (seanet_front, lstm_layer, rvq_encode)
 DECODE_KERNELS = (flash_attention_plain, decode_attention, decode_qkv, decode_ffn)
 # decode_ffn_tp, K7's tensor-parallel entry, runs on phase 7's tp=2 sampler
-KERNELS = ACOUSTIC_KERNELS + (flash_attention_relkey,) + DECODE_KERNELS + (decode_ffn_tp,)
+# flash_attention_relkey_bf16, K4's bf16 form, runs on the public op's bf16 input (3f)
+KERNELS = (ACOUSTIC_KERNELS + (flash_attention_relkey,) + DECODE_KERNELS
+           + (decode_ffn_tp, flash_attention_relkey_bf16))
 W2V_BLOCKS = 19  # conformer blocks a semantic_m forward runs, one K4 launch each
 HUBERT_LAYERS = 11  # layers a semantic_s forward runs, one K4 launch each ("flash")
 GPT_LAYERS, FINE_LAYERS = 12, 24  # K6/K7 launches per decode step, K5 per fine pass
+PIPE_NEW_TOKENS = 512  # 4f's AR tokens a row: half the default, to keep the script's time
 # bf16 kernel vs plain version: both accumulate in f32 and round at the same
 # points, so they differ by about one bf16 unit of the output's scale
 BF16_SHARE = 2**-6
@@ -281,6 +307,7 @@ BF16_SHARE = 2**-6
 # product (the kernel against its running maximum), so they differ by at most
 # a bf16 unit of the output's scale
 K5_SHARE = 2**-7
+REL_SENSITIVITY = 10  # 3f: a wrong rel term must move the output this many gates
 GOLDEN_MARGIN = 1e-4  # a greedy AR step whose top-1/top-2 logit gap is below may flip
 # H100 SXM peaks (NVIDIA's data sheet, dense): f32 outside the tensor cores,
 # bf16 and TF32 tensor cores, and HBM3
@@ -1115,9 +1142,92 @@ def phase4c_decode(dev):
         raise AssertionError(f"K5 launched {counts['flash_attention_plain']} times "
                              f"in {passes} passes")
     counts["lstm_layer"] = k2
+    phase4f_pipeline(dev, sem)
     del at, sem
     torch.cuda.empty_cache()
     return counts
+
+
+def phase4f_pipeline(dev, sem):
+    """``decode_batch(..., pipeline_batch=8)`` of 16 x 250 ids against two
+    serial ``decode_batch`` calls of 8 with the chunk seeds, in turns
+    (serial, pipelined, serial, pipelined), with ``PIPE_NEW_TOKENS`` new
+    tokens (the go/no-go at 1024 is ``scripts/profile_decode_torch.py
+    --pipeline 8``): the AR tokens and the fine codes of every chunk equal
+    in all four runs, the fine stage on a stream of its own in the
+    pipelined runs only, and each pipelined run's launches of K5, K6 and
+    K7 counted from 0; both walls and the waveforms' largest difference
+    printed."""
+    sources = [np.random.default_rng(200 + i).integers(0, 2048, 250) for i in range(16)]
+    sem.max_new_tokens = PIPE_NEW_TOKENS
+    stride = sem._CHUNK_SEED_STRIDE
+    seen = {}  # (stage, seed) -> each run's output
+    side = {"serial": [], "pipelined": []}  # per fine stage: on a stream of its own?
+    ar, fine = sem._ar_stage, sem._fine_stage
+    label = None
+
+    def ar_seen(srcs, seed):
+        rows = ar(srcs, seed)
+        seen.setdefault(("ar", seed), []).append(rows)
+        return rows
+
+    def fine_seen(rows, seed):
+        out = fine(rows, seed)
+        seen.setdefault(("fine", seed), []).append(out[0])
+        side[label].append(torch.cuda.current_stream(dev) != torch.cuda.default_stream(dev))
+        return out
+
+    sem._ar_stage, sem._fine_stage = ar_seen, fine_seen
+    runs, launches = [], []  # launches: each pipelined run's counts, decode steps, fine passes
+    try:
+        for label in ("serial", "pipelined", "serial", "pipelined"):
+            torch.cuda.synchronize()
+            steps0, passes0 = sem.gpt.decode_steps, sem.bark.passes
+            reset_counts()
+            t0 = time.perf_counter()
+            if label == "serial":
+                wavs = (sem.decode_batch(sources[:8], seed=11)
+                        + sem.decode_batch(sources[8:], seed=11 + stride))
+            else:
+                wavs = sem.decode_batch(sources, seed=11, pipeline_batch=8)
+            torch.cuda.synchronize()
+            runs.append((label, time.perf_counter() - t0, wavs))
+            if label == "pipelined":
+                launches.append(({k.__name__: k.launches for k in DECODE_KERNELS},
+                                 sem.gpt.decode_steps - steps0, sem.bark.passes - passes0))
+    finally:
+        del sem._ar_stage, sem._fine_stage
+        sem.max_new_tokens = 1024
+    audio_s = sum(w.shape[1] for w in runs[0][2]) / 24_000
+    ref = runs[0][2]
+    diff = max(float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
+               for _, _, wavs in runs[1:] for a, b in zip(wavs, ref))
+    say(f"[4f] 16 x 250 ids, {PIPE_NEW_TOKENS} new tokens, chunk 8, in turns: " + ", ".join(
+        f"{lab} {wall:.3f} s (real-time factor {audio_s / wall:.2f})" for lab, wall, _ in runs)
+        + f"; waveforms' largest |pipelined - serial| {diff:.3e}")
+    failures = [f"{stage} seed {seed}: {len(outs)} runs" for (stage, seed), outs in seen.items()
+                if len(outs) != 4]
+    for (stage, seed), outs in sorted(seen.items()):
+        for o in outs[1:]:
+            same = (all(np.array_equal(a, b) for a, b in zip(o, outs[0])) if stage == "ar"
+                    else np.array_equal(o, outs[0]))
+            if not same:
+                failures.append(f"{stage} seed {seed} differs between runs")
+    if any(side["serial"]) or not side["pipelined"] or not all(side["pipelined"]):
+        failures.append(f"fine stage streams {side}")
+    for counts, steps, passes in launches:
+        say(f"[4f] pipelined run: {steps} decode steps, {passes} fine passes, kernel launches "
+            f"{counts}")
+        if (steps < 1 or passes < 1 or counts["flash_attention_plain"] < FINE_LAYERS * passes
+                or min(counts[n] for n in ("decode_attention", "decode_qkv", "decode_ffn"))
+                < GPT_LAYERS * steps):
+            failures.append(f"pipelined launches {counts} in {steps} steps, {passes} passes")
+    say(f"[4f] AR tokens and fine codes of both chunks equal in all four runs: "
+        f"{'yes' if not failures else 'NO'}; the fine stage on a stream of its own in the "
+        f"pipelined runs ({sum(side['pipelined'])} of {len(side['pipelined'])}) and not in "
+        f"the serial ones")
+    if failures:
+        raise AssertionError("pipeline_batch: " + "; ".join(failures))
 
 
 def _si_snr(est, ref):
@@ -1262,6 +1372,108 @@ def phase3e_flash_norel(dev):
     return {"flash_attention_norel": dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
         **bound(flops, moved, "tf32x3"), bound_f32_ms=bound(flops, moved, "f32")["bound_ms"])}
+
+
+def phase3f_flash_bf16(dev):
+    """K4's bf16 form (csrc/flash_attention_bf16.cu): the public op on bf16
+    q, k, v with the rel term and a mask at the semantic_m shape and with
+    the mask alone at the HuBERT shape, its launches counted over those two
+    calls; then each against its plain version, timed, beside SDPA with the
+    mask as ``attn_mask`` for the mask-only form; and the form with neither
+    term at T = 1024 launching K5. Returns (launches, the kernels line's
+    entries)."""
+    rng = np.random.default_rng(6)
+
+    def t(shape, scale, dtype=torch.bfloat16):
+        a = (rng.standard_normal(shape) * scale).astype(np.float32)
+        return torch.from_numpy(a).to(dev).to(dtype)
+
+    def masked(B, T):
+        mask = torch.ones((B, T), device=dev)
+        mask[1, T - 377:] = 0.0
+        mask[5, T // 2:] = 0.0
+        return mask
+
+    B, H, T = 8, 16, 1500
+    q, k, v = t((B, H, T, 64), 0.3), t((B, H, T, 64), 0.3), t((B, H, T, 64), 1.0)
+    E, mask = t((73, 64), 0.5, torch.float32), masked(B, T)  # E rounded to bf16 by the op
+    B2, H2, T2 = 8, 12, 1499
+    q2, k2, v2 = t((B2, H2, T2, 64), 0.3), t((B2, H2, T2, 64), 0.3), t((B2, H2, T2, 64), 1.0)
+    mask2 = masked(B2, T2)
+
+    reset_counts()
+    out = flash_attention_relkey(q, k, v, E, mask)
+    launches = {"flash_attention_relkey_bf16": flash_attention_relkey_bf16.launches}
+    out2 = flash_attention_relkey(q2, k2, v2, None, mask2)
+    launches["flash_attention_relkey_bf16_norel"] = (flash_attention_relkey_bf16.launches
+                                                     - launches["flash_attention_relkey_bf16"])
+    torch.cuda.synchronize()
+    say(f"[3f] K4 bf16 launches over the public op's two calls: {launches}; K4 f32 "
+        f"{flash_attention_relkey.launches}")
+    if list(launches.values()) != [1, 1] or flash_attention_relkey.launches:
+        raise AssertionError(f"K4 bf16 launches {launches}, K4 f32 "
+                             f"{flash_attention_relkey.launches}: expected 1, 1 and 0")
+    n5 = flash_attention_plain.launches
+    q3, k3, v3 = (x[:, :, :1024].contiguous() for x in (q, k, v))
+    out3 = flash_attention_relkey(q3, k3, v3, None, None)
+    err3 = _compare("K4 bf16, neither term (the K5 route)", out3,
+                    noncausal_attention_plain(q3 * 0.125, k3, v3), torch.bfloat16, K5_SHARE)
+    if flash_attention_plain.launches != n5 + 1 or flash_attention_relkey_bf16.launches != 2:
+        raise AssertionError("bf16 with neither term at T = 1024 did not launch K5 alone")
+    del out3, q3, k3, v3
+
+    res = {}
+    bias2 = mask2.bool()[:, None, None, :]
+    for name, args, lib in (
+        ("flash_attention_relkey_bf16", (q, k, v, E, mask), None),
+        ("flash_attention_relkey_bf16_norel", (q2, k2, v2, None, mask2),
+         lambda: F.scaled_dot_product_attention(q2, k2, v2, attn_mask=bias2)),
+    ):
+        got = out if name == "flash_attention_relkey_bf16" else out2
+        err = _compare(f"K4 bf16 {name}", got, flash_attention_relkey_plain(*args),
+                       torch.bfloat16, K5_SHARE)
+        lib_err = None if lib is None else (got.float() - lib().float()).abs().max().item()
+        ms = cuda_ms(lambda: flash_attention_relkey(*args), reps=9)
+        plain_ms = cuda_ms(lambda: flash_attention_relkey_plain(*args), reps=9)
+        library_ms = None if lib is None else cuda_ms(lib, reps=9)
+        Bx, Hx, Tx, _ = args[0].shape
+        P = 0 if args[3] is None else args[3].shape[0]
+        flops = (4 * Tx * Tx + 2 * Tx * P) * 64 * Bx * Hx
+        moved = 4 * nbytes(args[0]) + 2 * P * 64 + nbytes(args[4])
+        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         **bound(flops, moved, "bf16"))
+        say(f"[3f] {name} [{Bx}, {Hx}, {Tx}, 64] bf16{', E [73, 64]' if P else ''}, masked: "
+            f"max|kernel-plain| {err:.3e}"
+            + ("" if lib_err is None else f"  max|kernel-SDPA| {lib_err:.3e}")
+            + f"  kernel {ms:.4f} ms  plain {plain_ms:.3f} ms"
+            + ("" if library_ms is None else f"  SDPA {library_ms:.4f} ms")
+            + f"  bound {res[name]['bound_ms']:.4f} ms ({res[name]['bound_by']}, "
+              f"{100 * res[name]['bound_ms'] / ms:.1f} % of it)")
+    say(f"[3f] bf16 with neither term at T = 1024 launched K5, max|out-plain| {err3:.3e}")
+
+    # the gate above holds the rel term only if getting it wrong moves the
+    # output far past the gate
+    gate = K5_SHARE * flash_attention_relkey_plain(q, k, v, E, mask).float().abs().max().item()
+    misses = rel_term_misses(q, k, v, E, mask)
+    say("[3f] the plain version with the rel term wrong, max|wrong-right| in units of the "
+        "gate: " + ", ".join(f"{name} {d / gate:.1f}" for name, d in misses.items()))
+    if min(misses.values()) < REL_SENSITIVITY * gate:
+        raise AssertionError(f"3f's inputs do not hold the rel term: {misses}, gate {gate}")
+    return launches, res
+
+
+def rel_term_misses(q, k, v, E, mask, left=64, right=8):
+    """max |plain - plain with the rel term wrong| for each way a kernel
+    could get it wrong: dropped, the band shifted by one, clamped one step
+    inside its left or its right edge (none inside an edge of width 0)."""
+    ref = flash_attention_relkey_plain(q, k, v, E, mask, left, right).float()
+    wrong = {"dropped": (None, left, right), "shifted by one": (torch.roll(E, 1, 0), left, right)}
+    if left:
+        wrong["left clamp one inside"] = (E[1:], left - 1, right)
+    if right:
+        wrong["right clamp one inside"] = (E[:-1], left, right - 1)
+    return {name: (flash_attention_relkey_plain(q, k, v, e, mask, lo, hi).float() - ref)
+            .abs().max().item() for name, (e, lo, hi) in wrong.items()}
 
 
 def phase4d_semantic_s(dev, tmp):
@@ -2044,13 +2256,15 @@ def _semantic_m_ids(feats, codebook):
         return nearest_centroid(f, codebook).to(torch.int16).cpu().numpy()
 
 
-def phase7_rank(pcm_m, prompts, stop):
-    """One rank of 7b/7c, on the card with its peer, over gloo: the dp=2
+def phase7_rank(pcm_m, prompts, stop, corpus_dir, corpus_out):
+    """One rank of 7b/7c/7e, on the card with its peer, over gloo: the dp=2
     acoustic encode of the battery, the tp=2 sampler on the golden prompts,
     TrainStep at (dp 1, tp 2) and (dp 2, tp 1), the tp=2 conformer on
     ``pcm_m``; then, after the kernel counts are read, K7's decode_ffn_tp
-    against its plain version on the sampler's shard. Returns its results,
-    walls, shard shapes, kernel counts and that comparison."""
+    against its plain version on the sampler's shard, and
+    ``encode_batch_files`` of ``corpus_dir`` into ``corpus_out`` on the dp=2
+    mesh. Returns its results, walls, shard shapes, kernel counts and that
+    comparison."""
     from audiotoken_tpu_torch.configs import Wav2VecBertConfig, Wav2VecBertDecoderConfig
     from audiotoken_tpu_torch.nn.conformer import W2VBertConfig, W2VBertFeatures
     from audiotoken_tpu_torch.nn.fbank import FbankConfig, fbank_features
@@ -2141,7 +2355,47 @@ def phase7_rank(pcm_m, prompts, stop):
         out["conformer_q"] = tuple(model.layers[0].attn.q.weight.shape)
     out["counts"] = {k.__name__: k.launches for k in KERNELS}
     out["ffn_tp_err"] = _ffn_tp_check(mesh.axis("tp"), layer0, len(prompts))
+    with get_policy("highest").numerics():
+        mesh = make_mesh(("dp",), device="cuda")
+        at = AudioToken(Tokenizers.acoustic, num_codebooks=16, weights="random", device="cuda",
+                        mesh=mesh)
+        reset_counts()
+        out["corpus"], out["corpus_wall"] = _timed(lambda: at.encode_batch_files(
+            batch_size=8, outdir=corpus_out, chunk_size=30, audio_dir=corpus_dir))
+        out["corpus_counts"] = {k.__name__: k.launches for k in ACOUSTIC_KERNELS}
     return out
+
+
+def _corpus_mesh_report(outs, out_w1, out_gloo):
+    """7e over the two gloo ranks: rank 0 alone wrote, every rank returned
+    its summary and launched K1-K3, and each file within the acoustic
+    per-case contract of the world-1 files, with the count of codes that
+    differ -> failures."""
+    failures = []
+    if any(o["corpus"] != outs[0]["corpus"] for o in outs):
+        failures.append("the ranks' corpus summaries differ")
+    counts = [o["corpus_counts"] for o in outs]
+    say(f"[7e] kernel launches of each rank in the corpus on the gloo mesh: {counts}")
+    if min(min(c.values()) for c in counts) < 1:
+        failures.append(f"a kernel did not launch on a rank in 7e: {counts}")
+    names = _npy_files(out_w1)
+    if _npy_files(out_gloo) != names:
+        return failures + [f"7e wrote {len(_npy_files(out_gloo))} files, expected {len(names)}"]
+    diff, bad = 0, []
+    for name in names:
+        a, b = np.load(os.path.join(out_gloo, name)), np.load(os.path.join(out_w1, name))
+        agree = float((a == b).mean()) if a.shape == b.shape else 0.0
+        diff += int((a != b).sum()) if a.shape == b.shape else b.size
+        if agree < parity.case_thresh("acoustic", name):
+            bad.append(f"{name} {agree:.6f}")
+    s = outs[0]["corpus"]
+    say(f"[7e] encode_batch_files on the dp=2 mesh of two gloo ranks sharing the card, B=8: "
+        f"{len(names)} files written by rank 0, {s['batches']} batches broadcast; {diff} codes "
+        f"differ from world 1 ({'bit-equal' if not diff else 'not bit-equal'}); per-file "
+        f"acoustic contract {'ok' if not bad else 'FAIL ' + ', '.join(bad)}; RTFx of the two "
+        f"processes {s['audio_seconds'] / outs[0]['corpus_wall']:.1f} (not a scaling figure); "
+        f"mesh_send {s['stages'].get('mesh_send')}")
+    return failures + [f"7e {b}" for b in bad]
 
 
 def _ffn_tp_check(tp, weights, B):
@@ -2168,10 +2422,12 @@ def _ffn_tp_check(tp, weights, B):
 
 
 
-def phase7_mesh(dev, tmp, ids_s0, m8, loss_hi):
+def phase7_mesh(dev, tmp, ids_s0, m8, loss_hi, c):
     """The mesh: 7a world 1 over NCCL through the entry points' ``mesh=``;
-    7b/7c two ranks on the card over gloo; 7d what they print. Returns
-    rank 0's launches of decode_ffn_tp on the tp=2 sampler."""
+    7b/7c two ranks on the card over gloo; 7d what they print; 7e the corpus
+    executor on phase 4e's corpus ``c``, on the world-1 mesh and over the
+    two ranks. Returns rank 0's launches of decode_ffn_tp on the tp=2
+    sampler."""
     import torch.distributed as dist
 
     from audiotoken_tpu_torch.configs import Wav2VecBertDecoderConfig
@@ -2226,6 +2482,27 @@ def phase7_mesh(dev, tmp, ids_s0, m8, loss_hi):
         codebook = enc.codebook
         del atm, enc
         torch.cuda.empty_cache()
+
+        at = AudioToken(Tokenizers.acoustic, num_codebooks=16, weights="random", mesh=mesh)
+        out_w1 = os.path.join(tmp, "corpus_mesh_w1")
+        reset_counts()
+        summary, wall = _timed(lambda: at.encode_batch_files(
+            batch_size=8, outdir=out_w1, chunk_size=30, audio_dir=c["dir"]))
+        counts = {k.__name__: k.launches for k in ACOUSTIC_KERNELS}
+        ref_dir = os.path.join(tmp, "corpus_tokens_b8")
+        same = _npy_files(out_w1) == _npy_files(ref_dir) and all(
+            np.array_equal(np.load(os.path.join(out_w1, f)), np.load(os.path.join(ref_dir, f)))
+            for f in _npy_files(ref_dir))
+        say(f"[7e] encode_batch_files, acoustic on the world-1 mesh over NCCL, B=8: "
+            f"{len(_npy_files(out_w1))} files {'bit-equal' if same else 'NOT equal'} to phase "
+            f"4e's B=8 files; RTFx {summary['audio_seconds'] / wall:.1f}; kernel launches "
+            f"{counts}")
+        if not same:
+            raise AssertionError("the corpus on the world-1 mesh differs from phase 4e's")
+        if min(counts.values()) < 1:
+            raise AssertionError(f"a kernel did not launch in the corpus on the mesh: {counts}")
+        del at
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     say(f"[7a] phase wall {time.perf_counter() - t_phase:.1f} s")
@@ -2234,8 +2511,9 @@ def phase7_mesh(dev, tmp, ids_s0, m8, loss_hi):
     g = np.load(os.path.join(HERE, "tests", "torch_goldens", "decode_semantic_m_s0.npz"))
     vocab = Wav2VecBertDecoderConfig.vocab
     prompts = [p[p >= 0] for p in g["prompts"]]
+    out_gloo = os.path.join(tmp, "corpus_mesh_gloo")
     outs = run_world("chip_smoke:phase7_rank", MESH_RANKS,
-                     (pcm_m[:2], prompts, vocab.stop_token[COMMONS.ACOUSTIC]),
+                     (pcm_m[:2], prompts, vocab.stop_token[COMMONS.ACOUSTIC], c["dir"], out_gloo),
                      backend="gloo", timeout=MESH_TIMEOUT)
     say(f"[7b] {MESH_RANKS} ranks on the one card over gloo in {time.perf_counter() - t0:.1f} s "
         f"(spawn included); gloo on CUDA tensors: {outs[0]['gloo_cuda']}")
@@ -2314,6 +2592,7 @@ def phase7_mesh(dev, tmp, ids_s0, m8, loss_hi):
             + ", ".join(f"(dp {a}, tp {b}) {w * 1e3:.0f} ms a step, "
                         f"{GPT_B * GPT_T / w:.0f} tokens/s" for (a, b), w in tr.items())
             + f"; tp=2 conformer 2 x 30 s RTFx {60 / o['conformer_wall']:.1f}")
+    failures += _corpus_mesh_report(outs, out_w1, out_gloo)
     if failures:
         raise AssertionError("phase 7 failed: " + "; ".join(failures))
     say(f"[7] phase wall {time.perf_counter() - t_phase:.1f} s")
@@ -2336,6 +2615,8 @@ def main():
         k8, k8_counts = phase3d_attn_ablation(dev)
         res.update(k8)
         res.update(phase3e_flash_norel(dev))
+        k4_bf16_counts, k4_bf16 = phase3f_flash_bf16(dev)
+        res.update(k4_bf16)
     with tempfile.TemporaryDirectory() as tmp:
         counts, device_rtfx = phase4_main_path(dev, tmp)
         keep = {}
@@ -2362,11 +2643,12 @@ def main():
         counts["flash_attention_relkey_vq"], res["flash_attention_relkey_vq"] = \
             phase6b_quantizer(dev, tmp, c)
         loss_hi = phase6c_gpt_training(dev, tmp)
-        counts["decode_ffn_tp"] = phase7_mesh(dev, tmp, ids_s0, m8, loss_hi)
+        counts["decode_ffn_tp"] = phase7_mesh(dev, tmp, ids_s0, m8, loss_hi, c)
     decode_counts = phase4c_decode(dev)
     phase5c_decode_goldens(dev)
     say(f"[4c] K2 launches in the acoustic decoder: {decode_counts.pop('lstm_layer')}")
     counts.update(decode_counts)
+    counts.update(k4_bf16_counts)
     rows = [
         ("seanet_front", "seanet_front", "audiotoken_tpu_torch/csrc/seanet_front.cu",
          "audiotoken_tpu/ops/seanet_pallas.py:124"),
@@ -2378,7 +2660,7 @@ def main():
          "audiotoken_tpu_torch/csrc/flash_attention.cu",
          "audiotoken_tpu/ops/flash_attention.py:519"),
         ("flash_attention_plain", "flash_attention_plain",
-         "audiotoken_tpu_torch/csrc/flash_attention_plain.cu",
+         "audiotoken_tpu_torch/csrc/flash_attention_bf16.cu",
          "audiotoken_tpu/ops/flash_attention.py:287"),
         ("decode_attention", "decode_attention", "audiotoken_tpu_torch/csrc/decode_attention.cu",
          "audiotoken_tpu/ops/decode_attention.py:142"),
@@ -2396,6 +2678,13 @@ def main():
         # K4 again, at the 10 s segments (12 s bucket) of quantizer training
         ("flash_attention_relkey_vq", "flash_attention_relkey_vq",
          "audiotoken_tpu_torch/csrc/flash_attention.cu",
+         "audiotoken_tpu/ops/flash_attention.py:519"),
+        # K4's bf16 form, with the rel term and the mask, and with the mask alone
+        ("flash_attention_relkey_bf16", "flash_attention_relkey_bf16",
+         "audiotoken_tpu_torch/csrc/flash_attention_bf16.cu",
+         "audiotoken_tpu/ops/flash_attention.py:519"),
+        ("flash_attention_relkey_bf16_norel", "flash_attention_relkey_bf16_norel",
+         "audiotoken_tpu_torch/csrc/flash_attention_bf16.cu",
          "audiotoken_tpu/ops/flash_attention.py:519"),
     ]
     # the TPU script's ablations (:108), its one-pass kernel (:157), and for

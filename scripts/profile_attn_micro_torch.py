@@ -7,7 +7,7 @@ Splits the time of an FMA flash attention (K5's first design, which K8
 keeps as its ``full`` mode) between its two dot products and its online
 softmax, by timing K8's ablations of it (``ops/attn_ablation.py``; not
 valid attention, cost attribution only), beside K5 itself
-(``csrc/flash_attention_plain.cu``, Bark-fine's attention, on the tensor
+(``csrc/flash_attention_bf16.cu``, Bark-fine's attention, on the tensor
 cores) and the other attention routes:
 
   plain                  K5 itself, bf16 on the tensor cores

@@ -18,7 +18,9 @@ from audiotoken_tpu.ops.flash_attention import flash_attention_relkey as jax_fla
 from audiotoken_tpu_torch.ops.attention import padding_bias
 from audiotoken_tpu_torch.ops.flash_attention import (
     flash_attention_relkey,
+    flash_attention_relkey_bf16,
     flash_attention_relkey_plain,
+    noncausal_attention_plain,
 )
 from torch_tf32 import tf32
 
@@ -94,6 +96,59 @@ def test_all_masked_row(T):
     if T % 256 == 0:
         kern = np.asarray(jax_flash(q, k, v, E, mask, left=LEFT, right=RIGHT, interpret=True))
         np.testing.assert_allclose(out, kern, rtol=0, atol=ATOL)
+
+
+def _bf16_ulps(out, ref):
+    """|out - ref| in units of the last place of bf16 at ref's magnitude
+    (magnitudes below 2^-6 counted at 2^-6)."""
+    mag = np.maximum(np.abs(ref), 2.0**-6)
+    return np.abs(out - ref) / 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("T,has_rel,has_mask", [(200, True, True), (200, False, True),
+                                                (256, False, False)],
+                         ids=["rel-mask", "mask", "plain-k5"])
+def test_bf16_matches_jax(T, has_rel, has_mask):
+    """K4's bf16 form against the Pallas kernel in interpret mode on the same
+    bf16 inputs: T not a tile multiple with both terms and with the mask
+    alone, and the form with neither term at T = 256, which both packages
+    hand to K5 with q pre-scaled in bf16. Within one bf16 unit in the last
+    place: the kernel rounds p against its running maximum a key tile at a
+    time, the plain version against the row's."""
+    q, k, v, E = _inputs(T + 1, 1, 2, T)
+    E = E if has_rel else None
+    mask = None
+    if has_mask:
+        mask = np.ones((1, T), np.float32)
+        mask[0, T - 40:] = 0.0
+    qb, kb, vb = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    ref = np.asarray(jax_flash(qb, kb, vb, E, mask, left=LEFT, right=RIGHT,
+                               interpret=True).astype(jnp.float32))
+    bf = lambda x: torch.from_numpy(np.array(x.astype(jnp.float32))).bfloat16()  # noqa: E731
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    out = flash_attention_relkey(bf(qb), bf(kb), bf(vb), t(E), t(mask), left=LEFT, right=RIGHT)
+    assert out.dtype == torch.bfloat16 and out.shape == (1, 2, T, DH)
+    assert _bf16_ulps(out.float().numpy(), ref).max() <= 1.0
+    if not has_rel and not has_mask:  # the K5 route, bit for bit
+        ref_k5 = noncausal_attention_plain(bf(qb) * DH**-0.5, bf(kb), bf(vb))
+        assert torch.equal(out, ref_k5)
+    else:
+        assert torch.equal(out, flash_attention_relkey_plain(
+            bf(qb), bf(kb), bf(vb), t(E), t(mask), LEFT, RIGHT))
+
+
+def test_bf16_kernel_wrapper_runs_plain_on_the_cpu():
+    """K4's bf16 wrapper on CPU tensors: the plain version, E rounded to
+    bf16 and the mask taken in f32, no launch counted."""
+    q, k, v, E = (torch.from_numpy(a) for a in _inputs(4, 1, 2, 70))
+    mask = torch.ones((1, 70), dtype=torch.bfloat16)
+    mask[0, 50:] = 0
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    before = flash_attention_relkey_bf16.launches
+    out = flash_attention_relkey_bf16(q, k, v, E, mask, LEFT, RIGHT)
+    assert flash_attention_relkey_bf16.launches == before
+    assert torch.equal(out, flash_attention_relkey_plain(q, k, v, E.bfloat16(), mask.float(),
+                                                         LEFT, RIGHT))
 
 
 def test_padding_bias_equals_jax():

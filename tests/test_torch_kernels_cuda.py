@@ -308,6 +308,93 @@ def test_flash_attention_refuses(dev):
         flash_attention_relkey(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), E, None)
 
 
+@pytest.mark.parametrize("has_mask", [True, False], ids=["mask", "nomask"])
+@pytest.mark.parametrize("has_rel", [True, False], ids=["rel", "norel"])
+@pytest.mark.parametrize("T", [1, 63, 65, 129, 300, 500, 1499, 1500])
+def test_flash_attention_bf16_matches_plain(dev, T, has_rel, has_mask):
+    """K4's bf16 kernel (csrc/flash_attention_bf16.cu) in every form whose
+    ``T`` is not a multiple of 256, one row fully masked or cut short; E at
+    ten times the f32 tests' scale, where the rel term moves the scores by
+    about 0.1."""
+    from audiotoken_tpu_torch.ops.flash_attention import flash_attention_relkey_bf16
+
+    q, k, v, E = (x.to(torch.bfloat16) for x in _attn_inputs(dev, 2, 3, T, seed=T))
+    E = E * 10 if has_rel else None
+    mask = None
+    if has_mask:
+        mask = torch.ones((2, T), device=dev)
+        mask[1, T // 2 + 1:] = 0.0
+    before, before_f32 = flash_attention_relkey_bf16.launches, flash_attention_relkey.launches
+    out = flash_attention_relkey(q, k, v, E, mask)
+    torch.cuda.synchronize()
+    assert flash_attention_relkey_bf16.launches == before + 1
+    assert flash_attention_relkey.launches == before_f32
+    assert out.dtype == torch.bfloat16 and out.shape == (2, 3, T, 64)
+    _assert_kernel_close(out, flash_attention_relkey_plain(q, k, v, E, mask), "K4", "bf16")
+
+
+@pytest.mark.parametrize("left,right", [(3, 0), (64, 8), (100, 100)])
+def test_flash_attention_bf16_band_edges(dev, left, right):
+    """The band's clamps and the tiles wholly outside it, with E large
+    enough that the plain version with the rel term dropped, the band
+    shifted by one, or either clamp one step inside its edge lies at least
+    ten times the tolerance away."""
+    from audiotoken_tpu_torch.ops.flash_attention import flash_attention_relkey_bf16
+
+    q, k, v, _ = (x.to(torch.bfloat16) for x in _attn_inputs(dev, 2, 2, 300, seed=left))
+    E = torch.from_numpy((np.random.default_rng(right).standard_normal(
+        (left + right + 1, 64)) * 0.5).astype(np.float32)).to(dev)  # rounded by the wrapper
+    mask = torch.ones((2, 300), device=dev)
+    mask[0] = 0.0
+    mask[1, 211:] = 0.0
+    out = flash_attention_relkey_bf16(q, k, v, E, mask, left=left, right=right)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    ref = flash_attention_relkey_plain(q, k, v, E, mask, left, right)
+    _assert_kernel_close(out, ref, "K4", "bf16")
+    tol = BF16_SHARE["K4"] * ref.float().abs().max().item()
+    wrong = {"dropped": (None, left, right), "shifted": (torch.roll(E, 1, 0), left, right),
+             "left clamp": (E[1:], left - 1, right)}
+    if right:
+        wrong["right clamp"] = (E[:-1], left, right - 1)
+    for name, (e, lo, hi) in wrong.items():
+        miss = (flash_attention_relkey_plain(q, k, v, e, mask, lo, hi).float()
+                - ref.float()).abs().max().item()
+        assert miss >= 10 * tol, (name, miss, tol)
+
+
+@pytest.mark.parametrize("T", [256, 1024])
+def test_flash_attention_bf16_plain_form_takes_k5(dev, T):
+    """bf16 with neither term and T a multiple of 256 launches K5 on q
+    pre-scaled in bf16, as the JAX package dispatches it, and not K4."""
+    from audiotoken_tpu_torch.ops.flash_attention import (
+        flash_attention_plain,
+        flash_attention_relkey_bf16,
+        noncausal_attention_plain,
+    )
+
+    q, k, v, _ = (x.to(torch.bfloat16) for x in _attn_inputs(dev, 2, 4, T, seed=T))
+    counts = (flash_attention_plain.launches, flash_attention_relkey_bf16.launches,
+              flash_attention_relkey.launches)
+    out = flash_attention_relkey(q, k, v, None, None)
+    torch.cuda.synchronize()
+    assert (flash_attention_plain.launches - counts[0], flash_attention_relkey_bf16.launches
+            - counts[1], flash_attention_relkey.launches - counts[2]) == (1, 0, 0)
+    _assert_kernel_close(out, noncausal_attention_plain(q * 0.125, k, v), "K5", "bf16")
+
+
+def test_flash_attention_bf16_refuses(dev):
+    q, k, v, E = (x.to(torch.bfloat16) for x in _attn_inputs(dev, 1, 2, 16))
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention_relkey(q.half(), k.half(), v.half(), E, None)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention_relkey(q, k.float(), v, E, None)
+    with pytest.raises(ValueError, match="head size"):
+        flash_attention_relkey(q[..., :32], k[..., :32], v[..., :32], None, None)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_relkey(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), E, None)
+
+
 def test_semantic_m_encoder_runs_the_kernel(dev):
     enc = Wav2VecBertEncoder(weights="random", seed=0, device=dev)
     x = (np.random.default_rng(2).standard_normal((2, 20_800)) * 0.2).astype(np.float32)
@@ -324,9 +411,10 @@ def test_semantic_m_encoder_runs_the_kernel(dev):
 # bf16: kernel and plain version both compute in f32 and round at the same
 # points (K5 and its plain version both round p to bf16 before the value
 # product, the kernel against its running maximum; K6 rounds once; K7 at the
-# same staging points), so they differ by a bf16 unit of the output's scale
-# where a sum in another order crosses a rounding boundary.
-BF16_SHARE = {"K5": 2**-7, "K6": 2**-7, "K7": 2**-6}
+# same staging points; K4's bf16 form as K5), so they differ by a bf16 unit
+# of the output's scale where a sum in another order crosses a rounding
+# boundary.
+BF16_SHARE = {"K4": 2**-7, "K5": 2**-7, "K6": 2**-7, "K7": 2**-6}
 DECODE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 

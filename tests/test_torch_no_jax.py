@@ -16,7 +16,8 @@ FORBIDDEN = {"jax", "jaxlib", "audiotoken_tpu"}
 NOT_AT_TOP = {"transformers", "safetensors", "joblib", "sklearn", "optax", "huggingface_hub",
               "matplotlib"}
 SOURCES = (sorted((ROOT / "audiotoken_tpu_torch").rglob("*.py"))
-           + sorted((ROOT / "scripts").glob("*_torch.py")) + [ROOT / "chip_smoke.py"])
+           + sorted((ROOT / "scripts").glob("*_torch.py")) + [ROOT / "chip_smoke.py"]
+           + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def _imported_modules(path: Path):
@@ -82,7 +83,9 @@ def test_decode_modules_are_checked(module):
     "scripts/bisect_precision_torch.py", "audiotoken_tpu_torch/parallel/mesh.py",
     "audiotoken_tpu_torch/parallel/collectives.py", "audiotoken_tpu_torch/parallel/shard.py",
     "audiotoken_tpu_torch/parallel/launch.py", "audiotoken_tpu_torch/parallel/dryrun.py",
-    "scripts/profile_mesh_torch.py",
+    "scripts/profile_mesh_torch.py", "scripts/fullsize_dryrun_torch.py",
+    "scripts/profile_ar_step_torch.py", "scripts/profile_fine_stages_torch.py",
+    "scripts/profile_conformer_stages_torch.py", "examples/usage_torch.py",
 ])
 def test_new_modules_are_checked(path):
     """The semantic_s, profiling and corpus modules, and the scripts that

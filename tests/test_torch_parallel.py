@@ -27,6 +27,8 @@ JAX package run here, on the 8 virtual CPU devices of ``conftest.py``:
   * a world whose rank fails while the others wait is killed and reported.
 """
 
+from pathlib import Path
+
 import jax
 import numpy as np
 import optax
@@ -45,10 +47,12 @@ from audiotoken_tpu.nn.gpt import GPTConfig as JaxGPTConfig
 from audiotoken_tpu.nn.gpt import GPTSampler as JaxGPTSampler
 from audiotoken_tpu.parallel import shard as jax_shard
 from audiotoken_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from audiotoken_tpu.runtime import executor as jax_executor
 from audiotoken_tpu.train import gpt_train as jax_gpt_train
 import torch_parallel_workers as workers
 from audiotoken_tpu_torch.api import AudioToken
 from audiotoken_tpu_torch.encoders import HubertEncoder
+from audiotoken_tpu_torch.io.wavfile import write_wav
 from audiotoken_tpu_torch.nn.conformer import W2VBertConfig, W2VBertFeatures, init_w2vbert_params
 from audiotoken_tpu_torch.nn.gpt import GPTConfig, init_gpt_params
 from audiotoken_tpu_torch.ops.flash_attention import flash_attention_relkey_plain
@@ -96,9 +100,22 @@ def batches():
 
 
 @pytest.fixture(scope="module")
-def dp4(batches):
+def corpus_files(tmp_path_factory):
+    """Three short 24 kHz WAVs, for the corpus executor on the dp 4 mesh."""
+    d = tmp_path_factory.mktemp("corpus")
+    rng = np.random.default_rng(9)
+    files = []
+    for i, seconds in enumerate((1.0, 2.5, 0.7)):
+        x = (0.25 * rng.standard_normal(int(24_000 * seconds))).clip(-1, 1)
+        files.append(str(d / f"c{i}.wav"))
+        write_wav(files[-1], (x * 32767).astype(np.int16), 24_000)
+    return files
+
+
+@pytest.fixture(scope="module")
+def dp4(batches, corpus_files):
     """Every rank's results of the dp 4 world."""
-    return run_world("torch_parallel_workers:dp4_world", 4, (batches, 1),
+    return run_world("torch_parallel_workers:dp4_world", 4, (batches, 1, corpus_files),
                      timeout=WORLD_TIMEOUT)
 
 
@@ -295,13 +312,44 @@ def test_dp_encode_equals_one_rank_and_jax(dp4, batches, narrow, tok):
     assert dp4[0][tok]["mesh"] == {"dp": 4}
 
 
-def test_audiotoken_hands_its_mesh_to_the_encoder(dp4, batches, narrow):
+def _npys(out):
+    return {p.name: p.read_bytes() for p in sorted(Path(out).rglob("*.npy"))}
+
+
+def test_audiotoken_hands_its_mesh_to_the_encoder(dp4, batches, narrow, corpus_files,
+                                                   tmp_path):
+    """The facade's mesh reaches the encoder, and through it the corpus
+    executor: four ranks tokenize the files as one host driving a dp 4
+    mesh, rank 0 alone writing, with the tokens of world 1 and of the JAX
+    package's executor on its dp 4 mesh; every rank returns the summary."""
     one = narrow("acoustic", "port")(batches["acoustic"][0][1])
+    corpus = Path(corpus_files[0]).parent
     for out in dp4:
         assert out["api"]["same_mesh"]
         np.testing.assert_array_equal(out["api"]["b4"], one)
-        # the corpus executor refuses a mesh of several ranks before reading a file
-        assert "mesh of more than one rank" in out["api"]["corpus"]
+        # a batch size that does not split over dp raises before a file is read
+        assert "multiple of 4" in out["api"]["odd_batch"]
+        assert out["api"]["corpus"] == dp4[0]["api"]["corpus"]
+    assert dp4[0]["api"]["rank0_fails"][0] != "RuntimeError"  # rank 0's own error
+    for out in dp4[1:]:
+        assert out["api"]["rank0_fails"] == (
+            "RuntimeError", "encode_batch_files failed on rank 0 of the mesh")
+    summary = dp4[0]["api"]["corpus"]
+    assert summary["batches"] == 2 and summary["audio_seconds"] == pytest.approx(4.2)
+    assert "mesh_send" in summary["stages"] and "failed_files" not in summary
+    for r in (1, 2, 3):  # the other ranks write nothing
+        assert not (corpus / f"out_r{r}").exists()
+    ours = _npys(corpus / "out_r0")
+    assert sorted(ours) == ["c0.npy", "c1.npy", "c2.npy"]
+    kw = dict(chunk_size=workers.CORPUS_CHUNK, num_workers=2, audio_files=corpus_files)
+    world1 = AudioToken("acoustic", device="cpu", num_codebooks=2, weights="random")
+    world1.encode_batch_files(workers.CORPUS_BATCH, tmp_path / "world1", **kw)
+    assert _npys(tmp_path / "world1") == ours
+    jax_enc = narrow("acoustic", "jax", jax_make_mesh(("dp",), devices=jax.devices()[:4]))
+    jax_enc.max_device_batch = 1
+    jax_executor.encode_batch_files(jax_enc, JaxAcousticEncoderConfig(bandwidth=1.5),
+                                    workers.CORPUS_BATCH, tmp_path / "jax", **kw)
+    assert _npys(tmp_path / "jax") == ours
     with pytest.raises(AttributeError, match="Mesh"):
         AudioToken("acoustic", device="cpu", weights="random", mesh=object())
 

@@ -102,6 +102,89 @@ def test_sampled_decode_is_seeded(tiny_weights):
         assert np.isfinite(w).all()
 
 
+def test_greedy_pipeline_batch_matches_jax(tiny_weights):
+    """``pipeline_batch`` in both packages: three sources in chunks of two,
+    the second chunk's AR loop beside the first chunk's fine stage, greedy;
+    the waveforms agree as the serial path's do."""
+    kw = dict(weights="random", max_new_tokens=12, top_k=1, **F32)
+    port = _argmax_fine(Wav2VecBertDecoder(device="cpu", **kw))
+    ref = _argmax_fine(JaxWav2VecBertDecoder(**kw))
+    sources = _sources(6, (12, 7, 15))
+    wavs = port.decode_batch(sources, seed=3, pipeline_batch=2)
+    refs = ref.decode_batch(sources, seed=3, pipeline_batch=2)
+    assert len(wavs) == len(refs) == 3
+    for w, r in zip(wavs, refs):
+        assert w.shape == r.shape and w.dtype == np.float32
+        np.testing.assert_allclose(w, r, rtol=0, atol=REL * np.abs(r).max())
+
+
+def test_sampled_pipeline_batch_is_the_serial_chunks(tiny_weights):
+    """Sampled, at the defaults (bf16 AR and fine stages, whose TF32
+    setting differs from the acoustic decoder's): the pipelined output is
+    per-chunk ``decode_batch`` with seed ``seed + 1_000_003 * i``, bit for
+    bit, and a failure in the worker thread raises in the caller."""
+    dec = Wav2VecBertDecoder(weights="random", device="cpu", max_new_tokens=8)
+    sources = _sources(7, (10, 6, 13))
+    piped = dec.decode_batch(sources, seed=11, pipeline_batch=2)
+    serial = [w for i in range(2) for w in dec.decode_batch(
+        sources[2 * i: 2 * i + 2], seed=11 + 1_000_003 * i)]
+    assert len(piped) == len(serial) == 3
+    for a, b in zip(piped, serial):
+        np.testing.assert_array_equal(a, b)
+
+    def fail(rows, seed):
+        raise RuntimeError("fine stage failed")
+
+    dec._fine_stage = fail
+    with pytest.raises(RuntimeError, match="fine stage failed"):
+        dec.decode_batch(sources, seed=11, pipeline_batch=2)
+
+
+@pytest.mark.parametrize("ar_precision", ["default", "highest"])
+def test_pipeline_batch_stages_keep_their_tf32_switches(tiny_weights, ar_precision):
+    """The switches are process-wide and the pipeline runs the AR and fine
+    stages in two threads: each stage, the acoustic one included, sees its
+    own policy's TF32 setting from its start to its end; the AR and fine
+    stages overlap where their settings agree and take turns where they
+    differ; the caller's switches come back."""
+    import threading
+    import time
+
+    import torch
+
+    dec = Wav2VecBertDecoder(weights="random", device="cpu", max_new_tokens=4, top_k=1,
+                             ar_precision=ar_precision, fine_precision="default")
+    seen, spans = [], {}
+
+    def switches():
+        return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+    def watched(stage, fn):
+        def run(*a, **kw):
+            t0, first = time.perf_counter(), switches()
+            time.sleep(0.1)  # long enough that the other thread's stage starts
+            out = fn(*a, **kw)
+            seen.append((stage, first, switches()))
+            spans.setdefault(stage, []).append((t0, time.perf_counter(),
+                                                threading.get_ident()))
+            return out
+        return run
+
+    dec.gpt.generate_batch = watched("ar", dec.gpt.generate_batch)
+    dec.bark.generate_fine_batch = watched("fine", dec.bark.generate_fine_batch)
+    dec.acoustic_decoder.seanet.forward = watched("acoustic", dec.acoustic_decoder.seanet.forward)
+    caller = switches()
+    dec.decode_batch(_sources(8, (6, 9, 5)), seed=2, pipeline_batch=2)
+    assert switches() == caller
+    want = {"ar": ar_precision != "highest", "fine": True, "acoustic": False}
+    assert sorted(s for s, _, _ in seen) == ["acoustic"] * 2 + ["ar"] * 2 + ["fine"] * 2
+    for stage, first, last in seen:
+        assert first == last == (want[stage],) * 2, (stage, first, last)
+    (f0, f1, f_thread), (a0, a1, a_thread) = spans["fine"][0], spans["ar"][1]
+    assert f_thread != a_thread
+    assert (f0 < a1 and a0 < f1) == (want["ar"] == want["fine"])  # chunk 0's fine, chunk 1's AR
+
+
 def test_api_decode_int16_is_the_float_path(tiny_weights, tmp_path):
     kw = dict(max_new_tokens=16, top_k=1, **F32)
     src = _sources(3, (12,))[0]
@@ -120,8 +203,6 @@ def test_refusals(tiny_weights):
     with pytest.raises(AssertionError):
         HubertDecoder(language=COMMONS.HI, weights="random", device="cpu")
     dec = Wav2VecBertDecoder(weights="random", device="cpu", max_new_tokens=8, top_k=1)
-    with pytest.raises(NotImplementedError, match="pipeline_batch"):
-        dec.decode_batch(_sources(4, (5, 6, 7)), pipeline_batch=2)
     assert len(dec.decode_batch(_sources(4, (5, 6)), pipeline_batch=2)) == 2
     at = AudioToken(Tokenizers.semantic_s, weights="random", device="cpu")
     with pytest.raises(ValueError, match="audio_files or audio_dir"):

@@ -108,9 +108,19 @@ def encode_batches(tok: str, batches, max_device_batch: int, mesh_shape=None,
     return out
 
 
-def dp4_world(batches, max_device_batch: int) -> dict:
+#: the corpus of the dp 4 world: chunk seconds, batch size
+CORPUS_CHUNK, CORPUS_BATCH = 1.0, 4
+
+
+def dp4_world(batches, max_device_batch: int, corpus_files) -> dict:
     """The dp 4 world: every tokenizer's batches over a ("dp",) mesh, and
-    ``AudioToken(mesh=)`` handing its mesh to the encoder."""
+    ``AudioToken(mesh=)`` handing its mesh to the encoder, which drives
+    ``encode_batch_files`` over ``corpus_files`` into ``out_r<rank>``
+    beside them (a batch size that does not split over dp raises first)."""
+    import os
+
+    import torch.distributed as dist
+
     from audiotoken_tpu_torch.api import AudioToken
 
     out = {tok: encode_batches(tok, batches[tok], max_device_batch)
@@ -120,10 +130,20 @@ def dp4_world(batches, max_device_batch: int) -> dict:
     at.load_encoder()
     name, audio, _ = batches["acoustic"][0]
     out["api"] = {"same_mesh": at.encoder.mesh is mesh, name: at.encoder(audio)}
+    at.encoder.max_device_batch = max_device_batch
+    outdir = os.path.join(os.path.dirname(corpus_files[0]), f"out_r{dist.get_rank()}")
     try:
-        at.encode_batch_files(4, "unused", audio_files=["unused.wav"])
-    except NotImplementedError as e:
-        out["api"]["corpus"] = str(e)
+        at.encode_batch_files(CORPUS_BATCH - 1, outdir, audio_files=["missing.wav"])
+    except ValueError as e:
+        out["api"]["odd_batch"] = str(e)
+    out["api"]["corpus"] = at.encode_batch_files(
+        CORPUS_BATCH, outdir, chunk_size=CORPUS_CHUNK, num_workers=2, audio_files=corpus_files)
+    # an outdir that is a file: rank 0 fails before its first batch, and its
+    # stop message ends the other ranks' loop with an error, not a hang
+    try:
+        at.encode_batch_files(CORPUS_BATCH, corpus_files[0], audio_files=corpus_files)
+    except Exception as e:  # noqa: BLE001  (the test reads which)
+        out["api"]["rank0_fails"] = type(e).__name__, str(e)
     return out
 
 
