@@ -175,7 +175,8 @@ class _SemanticDecoderBase:
         state = weight_store.bark_fine_from_numpy(bark_params)
         del bark_params
         self.bark = BarkFineGenerator(_module_from_state(BarkFine, bark_cfg, state, self.device,
-                                                         _DTYPES[fine_dtype]))
+                                                         _DTYPES[fine_dtype]),
+                                      precision=self.fine_policy.matmul_precision)
         del state
 
         self.acoustic_decoder = AcousticDecoder(

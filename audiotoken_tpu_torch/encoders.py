@@ -346,7 +346,8 @@ class HubertEncoder:
                 var = ((a - mu).square() * mask).sum(dim=-1, keepdim=True) / n
                 audio = (a - mu) / torch.sqrt(var + 1e-7) * mask
             # under "bfloat16" the first conv and its norm take bf16 input
-            feats = self.model(audio.to(self.policy.compute_dtype), mask)
+            feats = self.model(audio.to(self.policy.compute_dtype), mask,
+                               self.policy.matmul_precision)
             if not quantize:
                 return feats
             feats = F.layer_norm(feats, feats.shape[-1:], eps=1e-5)  # affine-free

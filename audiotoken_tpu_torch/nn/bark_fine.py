@@ -5,9 +5,11 @@ Counterpart of ``audiotoken_tpu/nn/bark_fine.py``: 24 pre-LN blocks
 without a causal mask, 1024 wide, 16 heads x 64, one embedding table per
 codebook (summed up to the predicted one), one lm_head per predicted
 codebook. The attention is K5 (``ops/flash_attention.py:
-flash_attention_plain``) on a CUDA tensor and its plain version on a CPU
-one; everything else is plain PyTorch. One window's whole codebook
-cascade runs on the device; the host only slides the windows.
+flash_attention_plain``) on a CUDA tensor, at the generator's precision
+(in f32: 3xTF32 at ``highest``, one TF32 pass otherwise; bf16 ignores
+it), and its plain version on a CPU one; everything else is plain
+PyTorch. One window's whole codebook cascade runs on the device; the host
+only slides the windows.
 """
 
 from dataclasses import dataclass
@@ -62,9 +64,11 @@ class BarkFine(nn.Module):
             _param(cfg.vocab_size, C) for _ in range(cfg.n_codes_total - cfg.n_codes_given))
         self.layers = nn.ModuleList(FineBlock(cfg) for _ in range(cfg.n_layer))
 
-    def forward(self, codes: torch.Tensor, codebook_idx: int) -> torch.Tensor:
+    def forward(self, codes: torch.Tensor, codebook_idx: int,
+                precision: str = "highest") -> torch.Tensor:
         """codes [B, T, n_codes_total] -> logits [B, T, vocab] f32 for
-        codebook ``codebook_idx`` (embeddings of codebooks 0..idx summed)."""
+        codebook ``codebook_idx`` (embeddings of codebooks 0..idx summed);
+        ``precision`` is K5's (a key of ``runtime/precision.py:TF32``)."""
         cfg = self.cfg
         B, T, _ = codes.shape
         nh, C, eps = cfg.n_head, cfg.n_embd, cfg.layer_norm_eps
@@ -76,7 +80,8 @@ class BarkFine(nn.Module):
         for layer in self.layers:
             qkv = _lin(layer.qkv, _ln(layer.ln1, x, eps)).view(B, T, 3, nh, dh)
             q, k, v = (qkv[:, :, j].transpose(1, 2).contiguous() for j in range(3))
-            a = flash_attention_plain((q * dh**-0.5).to(x.dtype), k, v)  # [B, nh, T, dh]
+            a = flash_attention_plain((q * dh**-0.5).to(x.dtype), k, v,
+                                      precision=precision)  # [B, nh, T, dh]
             x = x + _lin(layer.out, a.transpose(1, 2).reshape(B, T, C))
             h = F.gelu(_lin(layer.mlp_in, _ln(layer.ln2, x, eps)))
             x = x + _lin(layer.mlp_out, h)
@@ -87,11 +92,14 @@ class BarkFine(nn.Module):
 
 class BarkFineGenerator:
     """Sliding-window fine-codebook inpainting (bark ``generate_fine``),
-    batched over sequences of one length."""
+    batched over sequences of one length. ``precision`` is the fine
+    stage's policy's ``matmul_precision``, which K5 takes (the JAX
+    generator's ``precision``)."""
 
-    def __init__(self, model: BarkFine):
+    def __init__(self, model: BarkFine, precision: str = "highest"):
         self.model = model
         self.cfg = model.cfg
+        self.precision = precision
         #: codebook passes run so far (each one launches K5 once per layer
         #: on a CUDA device)
         self.passes = 0
@@ -114,7 +122,7 @@ class BarkFineGenerator:
         cfg = self.cfg
         keep_new = torch.arange(buf.shape[1], device=buf.device)[None, :] >= rel_fill
         for cb in range(n_coarse, cfg.n_codes_total):
-            relevant = self.model(buf, cb)[:, :, : cfg.codebook_size]
+            relevant = self.model(buf, cb, self.precision)[:, :, : cfg.codebook_size]
             self.passes += 1
             if temperature is None:
                 preds = relevant.argmax(dim=-1)

@@ -15,10 +15,12 @@ gives both packages bit-identical parameters.
 The forward takes a precision: a policy name or a per-stage map
 (``runtime/precision.py:StagePrecision``), passed down explicitly as the
 JAX package passes ``P``. Each stage's products run under that stage's
-TF32 switches; the depthwise conv runs in IEEE f32 under every setting,
-as the JAX package's shift-sum has no precision to lower. bf16 input (the
-``bfloat16`` policy) takes the feature projection's LayerNorm in bf16, as
-the JAX package computes it, and is f32 from that norm's affine on.
+TF32 switches, and K4 at the ``attn_kernel`` stage's precision (3xTF32 at
+``highest``, one TF32 pass otherwise); the depthwise conv runs in IEEE f32
+under every setting, as the JAX package's shift-sum has no precision to
+lower. bf16 input (the ``bfloat16`` policy) takes the feature projection's
+LayerNorm in bf16, as the JAX package computes it, and is f32 from that
+norm's affine on.
 
 With ``tp`` (a ``parallel.mesh.Axis`` of more than one rank) the model is
 this rank's tensor-parallel shard under ``parallel/shard.py:
@@ -116,11 +118,11 @@ class RelKeyAttention(nn.Module):
 
         with P.numerics("attn_qkv"):
             q, k, v = heads(self.q(x)), heads(self.k(x)), heads(self.v(x))
-        # K4 is 3xTF32 under every setting of "attn_kernel"
         a = flash_attention_relkey(
             q, k, v, self.distance_embedding, frame_mask,
             left=self.cfg.left_max_position_embeddings,
             right=self.cfg.right_max_position_embeddings,
+            precision=P("attn_kernel"),
         )
         with P.numerics("attn_out"):
             return _row(self.out, a.transpose(1, 2).reshape(B, T, nh * dh), self.tp)

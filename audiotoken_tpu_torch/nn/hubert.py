@@ -22,10 +22,12 @@ is not carried over: the goldens hold with ``F.conv1d``. The numpy
 initialiser makes the same draws, in the same order, as the JAX package's.
 
 HuBERT has one precision (no stage map): the caller's policy sets the TF32
-switches for the whole forward. bf16 input (the ``bfloat16`` policy) runs
-the first conv on bf16 operands with f32 accumulation and a bf16 output,
-and its GroupNorm statistics in bf16, as the JAX package computes them;
-everything from that norm's affine on is f32.
+switches for the whole forward, and its ``matmul_precision`` goes down the
+forward to K4 (3xTF32 at ``highest``, one TF32 pass otherwise). bf16
+input (the ``bfloat16`` policy) runs the first conv on bf16 operands with
+f32 accumulation and a bf16 output, and its GroupNorm statistics in bf16,
+as the JAX package computes them; everything from that norm's affine on
+is f32.
 """
 
 from dataclasses import dataclass
@@ -132,7 +134,7 @@ class Attention(nn.Module):
         self.out = nn.Linear(H, H)
 
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor],
-                frame_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                frame_mask: Optional[torch.Tensor], precision: str = "highest") -> torch.Tensor:
         B, T, H = x.shape
         nh = self.cfg.num_attention_heads
 
@@ -141,7 +143,7 @@ class Attention(nn.Module):
 
         q, k, v = heads(self.q(x)), heads(self.k(x)), heads(self.v(x))
         if self.cfg.attn_impl == "flash":
-            a = flash_attention_relkey(q, k, v, None, frame_mask)
+            a = flash_attention_relkey(q, k, v, None, frame_mask, precision=precision)
         else:
             a = multihead_attention(q, k, v, bias)
         return self.out(a.transpose(1, 2).reshape(B, T, H))
@@ -159,8 +161,8 @@ class EncoderLayer(nn.Module):
         self.ffn_out = nn.Linear(cfg.intermediate_size, H)
         self.final_layer_norm = nn.LayerNorm(H, eps=eps)
 
-    def forward(self, x, bias, frame_mask):
-        x = self.layer_norm(x + self.attn(x, bias, frame_mask))
+    def forward(self, x, bias, frame_mask, precision="highest"):
+        x = self.layer_norm(x + self.attn(x, bias, frame_mask, precision))
         return self.final_layer_norm(x + self.ffn_out(F.gelu(self.ffn_in(x))))
 
 
@@ -182,8 +184,10 @@ class HubertFeatures(nn.Module):
         self.encoder_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(output_layer))
 
-    def forward(self, audio: torch.Tensor,
-                attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, audio: torch.Tensor, attention_mask: Optional[torch.Tensor] = None,
+                precision: str = "highest") -> torch.Tensor:
+        """``precision``: the policy's ``matmul_precision`` (a key of
+        ``runtime/precision.py:TF32``), K4's precision on the "flash" route."""
         feats = self.extractor(audio)
         frame_mask = bias = None
         if attention_mask is not None:
@@ -197,7 +201,7 @@ class HubertFeatures(nn.Module):
             h = h * frame_mask[:, :, None]
         h = self.encoder_layer_norm(h + self.pos_conv(h))
         for layer in self.layers:
-            h = layer(h, bias, frame_mask)
+            h = layer(h, bias, frame_mask, precision)
         return h
 
 

@@ -40,8 +40,8 @@ SIGNATURES = {
     "seanet_front_elu_mismatches": (_P,),
     "lstm_layer_f32": (_P, _P, _P, _P, _I, _I),
     "rvq_encode_f32": (_P,) * 4 + (_I,) * 4,
-    **{f"flash_attention_relkey_{t}": (_P,) * 6 + (_I,) * 5 for t in ("f32", "bf16")},
-    **{f"flash_attention_plain_{t}": (_P,) * 4 + (_I,) * 2 for t in ("f32", "bf16")},
+    **{f"flash_attention_relkey_{t}": (_P,) * 6 + (_I,) * 5 for t in ("f32", "f32_1pass", "bf16")},
+    **{f"flash_attention_plain_{t}": (_P,) * 4 + (_I,) * 2 for t in ("f32", "f32_1pass", "bf16")},
     **{f"decode_attention_{t}": (_P,) * 7 + (_I,) * 6 for t in ("f32", "bf16")},
     **{f"decode_qkv_{t}": (_P,) * 6 + (_I,) * 3 + (_F,) for t in ("f32", "bf16")},
     **{f"decode_ffn_{t}": (_P,) * 13 + (_I,) * 3 + (_F,) for t in ("f32", "bf16")},

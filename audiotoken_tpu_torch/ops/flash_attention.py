@@ -26,10 +26,24 @@ In bf16 it runs on the bf16 tensor cores (``csrc/flash_attention_bf16.cu``,
 the kernel's instantiation without K4's terms); in f32 it is K4's 3xTF32 kernel
 without its terms and without scaling the scores again
 (``flash_attention_plain_f32`` in ``csrc/flash_attention.cu``).
+
+Both take the JAX kernel's ``precision``, by the port's names (the keys of
+``runtime/precision.py:TF32``). On f32 CUDA tensors ``"highest"`` launches
+the 3xTF32 kernel and ``"default"`` its one-pass form, every product on
+operands rounded once to TF32 (``flash_attention_*_f32_1pass``, counted in
+``launches_1pass``); ``"high"`` is lowered to ``"default"``, as the JAX
+kernel lowers ``HIGH``. bf16 inputs ignore it: the JAX body's bf16 dots are
+one pass at any precision. On the CPU every precision runs the plain
+version in f32, which is what the JAX package computes there. The plain
+versions' ``tf32=True`` is the one-pass kernel's twin, for the card's tests.
 """
 
-import torch
+import contextlib
 
+import torch
+import torch.nn.functional as F
+
+from ..runtime.precision import TF32, tf32_numerics
 from . import _build
 from .attention import padding_bias
 
@@ -39,10 +53,50 @@ KERNEL_DH = 64
 #: the JAX package's key tile: bf16 inputs with neither term and ``T`` a
 #: multiple of it take K5 (``audiotoken_tpu/ops/flash_attention.py:383``)
 K_TILE = 256
+#: keys a tile of the f32 kernel (``BK`` in csrc/flash_attention.cu): its
+#: one-pass form rounds p against the running maximum over such tiles
+ONEPASS_KEY_TILE = 64
+
+
+def kernel_passes(precision: str) -> int:
+    """TF32 passes of the f32 kernels at the JAX ``precision`` named by a
+    key of ``runtime/precision.py:TF32``: 3 for ``"highest"``, 1 for
+    ``"default"`` and for ``"high"``, which the JAX kernel lowers to
+    ``DEFAULT``. Any other name raises ValueError."""
+    if precision not in TF32:
+        raise ValueError(f"unknown precision {precision!r}; use one of {list(TF32)}")
+    return 1 if TF32[precision] else 3
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, in the bit form ``(bits + 0x1000) & 0xffffe000`` of
+    csrc/rvq.cu: what ``cvt.rna.tf32.f32`` gives for a finite x."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _onepass_softmax_pv(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``softmax(s) v`` as the one-pass kernel takes it, on f32 scores s
+    [..., Tq, Tk]: over tiles of :data:`ONEPASS_KEY_TILE` keys, p = exp(s -
+    m) against the running maximum m of the tiles so far, rounded to TF32
+    for the value product; the row sum l of the unrounded p; each tile's
+    share carried to the final maximum; v rounded to TF32; the products in
+    IEEE f32 (the caller turns TF32 off)."""
+    Tk = s.shape[-1]
+    n = -(-Tk // ONEPASS_KEY_TILE)
+    st = F.pad(s, (0, n * ONEPASS_KEY_TILE - Tk), value=float("-inf"))
+    st = st.unflatten(-1, (n, ONEPASS_KEY_TILE))
+    m = st.amax(-1).cummax(-1).values  # [..., Tq, n]
+    p = torch.exp(st - m[..., None])
+    carry = torch.exp(m - m[..., -1:])
+    l = (p.sum(-1) * carry).sum(-1, keepdim=True)
+    w = (tf32_round(p) * carry[..., None]).flatten(-2)[..., :Tk]
+    return torch.matmul(w, tf32_round(v)) / l.clamp_min(1e-30)
 
 
 def flash_attention_relkey_plain(q, k, v, dist_embedding=None, frame_mask=None,
-                                 left: int = 64, right: int = 8):
+                                 left: int = 64, right: int = 8, tf32: bool = False):
     """q, k, v [B, H, T, dh] f32 or bf16; dist_embedding [left+right+1, dh]
     or None; frame_mask [B, T] {0, 1} or None -> [B, H, T, dh] in q's dtype.
 
@@ -53,25 +107,37 @@ def flash_attention_relkey_plain(q, k, v, dist_embedding=None, frame_mask=None,
     In bf16 it computes what the Pallas body does: both products on the
     bf16 values (E rounded to bf16) summed in f32, the scale and the bias
     in f32, ``p = exp(s - rowmax)`` and ``l = sum(p)`` in f32, then
-    ``acc = bf16(p) @ v`` in f32 and ``out = bf16(acc / max(l, 1e-30))``."""
+    ``acc = bf16(p) @ v`` in f32 and ``out = bf16(acc / max(l, 1e-30))``.
+
+    ``tf32=True`` (f32 only) is the twin of the one-pass kernel: q, k, E, p
+    and v rounded to TF32 (:func:`tf32_round`) before each product, p as the
+    kernel holds it (:func:`_onepass_softmax_pv`), the products in IEEE f32
+    with the TF32 switches off."""
     T, dh = q.shape[-2:]
     bf16 = q.dtype == torch.bfloat16
+    if tf32 and bf16:
+        raise ValueError("tf32=True is the one-pass twin of the f32 kernel: give it f32 inputs")
     qf, kf = (q.float(), k.float()) if bf16 else (q, k)
-    s = torch.matmul(qf, kf.transpose(-1, -2))
-    if dist_embedding is not None:
-        P = dist_embedding.shape[0]
-        if P != left + right + 1:
-            raise ValueError(f"dist_embedding has {P} rows, expected left + right + 1")
-        E = dist_embedding.to(torch.bfloat16).float() if bf16 else dist_embedding
-        pos = torch.matmul(qf, E.t())  # [B, H, T, P]
-        t = torch.arange(T, device=q.device)
-        idx = (t[None, :] - t[:, None] + left).clamp(0, P - 1)  # [T (q), T (k)]
-        s = s + pos[:, :, t[:, None], idx]
-    s = s * dh**-0.5
-    if frame_mask is not None:
-        s = s + padding_bias(frame_mask)
-    if not bf16:
-        return torch.matmul(torch.softmax(s, dim=-1), v)
+    if tf32:
+        qf, kf = tf32_round(q), tf32_round(k)
+    with tf32_numerics(False) if tf32 else contextlib.nullcontext():
+        s = torch.matmul(qf, kf.transpose(-1, -2))
+        if dist_embedding is not None:
+            P = dist_embedding.shape[0]
+            if P != left + right + 1:
+                raise ValueError(f"dist_embedding has {P} rows, expected left + right + 1")
+            E = dist_embedding.to(torch.bfloat16).float() if bf16 else dist_embedding
+            pos = torch.matmul(qf, (tf32_round(E) if tf32 else E).t())  # [B, H, T, P]
+            t = torch.arange(T, device=q.device)
+            idx = (t[None, :] - t[:, None] + left).clamp(0, P - 1)  # [T (q), T (k)]
+            s = s + pos[:, :, t[:, None], idx]
+        s = s * dh**-0.5
+        if frame_mask is not None:
+            s = s + padding_bias(frame_mask)
+        if tf32:
+            return _onepass_softmax_pv(s, v)
+        if not bf16:
+            return torch.matmul(torch.softmax(s, dim=-1), v)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.matmul(p.to(torch.bfloat16).float(), v.float())
@@ -79,13 +145,17 @@ def flash_attention_relkey_plain(q, k, v, dist_embedding=None, frame_mask=None,
 
 
 def flash_attention_relkey(q, k, v, dist_embedding=None, frame_mask=None,
-                           left: int = 64, right: int = 8):
+                           left: int = 64, right: int = 8, precision: str = "highest"):
     """The function of :func:`flash_attention_relkey_plain`. For CUDA
-    tensors (contiguous, dh = 64) it launches K4: the 3xTF32 kernel for f32
-    inputs, :func:`flash_attention_relkey_bf16` for bf16 ones; any other
-    dtype raises. For CPU tensors it runs the plain version. bf16 inputs
-    with neither term and ``T`` a multiple of :data:`K_TILE` take K5 on q
-    pre-scaled by dh^-0.5 in bf16, as the JAX package does."""
+    tensors (contiguous, dh = 64) it launches K4: for f32 inputs the 3xTF32
+    kernel at ``precision="highest"``, its one-pass form at ``"high"`` and
+    ``"default"`` (:func:`kernel_passes`); :func:`flash_attention_relkey_bf16`
+    for bf16 ones, at any precision; any other dtype raises. For CPU tensors
+    it runs the plain version in f32 at every precision. bf16 inputs with
+    neither term and ``T`` a multiple of :data:`K_TILE` take K5 on q
+    pre-scaled by dh^-0.5 in bf16, as the JAX package does. An unknown
+    ``precision`` raises ValueError."""
+    passes = kernel_passes(precision)
     T, dh = q.shape[-2:]
     if (q.dtype == torch.bfloat16 and dist_embedding is None and frame_mask is None
             and T % K_TILE == 0):
@@ -101,13 +171,17 @@ def flash_attention_relkey(q, k, v, dist_embedding=None, frame_mask=None,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    _build.launch("flash_attention_relkey_f32", q.device, q, k, v, dist_embedding, frame_mask,
-                  out, B * H, H, T, P, left)
-    flash_attention_relkey.launches += 1
+    name = "flash_attention_relkey_f32" + ("" if passes == 3 else "_1pass")
+    _build.launch(name, q.device, q, k, v, dist_embedding, frame_mask, out, B * H, H, T, P, left)
+    if passes == 3:
+        flash_attention_relkey.launches += 1
+    else:
+        flash_attention_relkey.launches_1pass += 1
     return out
 
 
-flash_attention_relkey.launches = 0
+flash_attention_relkey.launches = 0  # the 3xTF32 kernel's
+flash_attention_relkey.launches_1pass = 0  # the one-pass kernel's
 
 
 def _check_relkey(q, k, v, E, mask, left, right, dtype) -> int:
@@ -157,13 +231,22 @@ def flash_attention_relkey_bf16(q, k, v, dist_embedding=None, frame_mask=None,
 flash_attention_relkey_bf16.launches = 0
 
 
-def noncausal_attention_plain(q, k, v):
+def noncausal_attention_plain(q, k, v, tf32: bool = False):
     """q (pre-scaled by dh^-0.5), k, v [B, H, T, dh] bf16 or f32 ->
     ``softmax(q k^T) v`` [B, H, T, dh] in the input's dtype, computed in f32.
 
     In bf16 it computes what the Pallas bodies do (``_kernel_onepass``,
     ``_kernel_plain``): ``p = exp(s - rowmax)`` and ``l = sum(p)`` in f32,
-    then ``acc = bf16(p) @ v`` in f32 and ``out = acc / max(l, 1e-30)``."""
+    then ``acc = bf16(p) @ v`` in f32 and ``out = acc / max(l, 1e-30)``.
+
+    ``tf32=True`` (f32 only) is the twin of the one-pass kernel, as in
+    :func:`flash_attention_relkey_plain`."""
+    if tf32:
+        if q.dtype != torch.float32:
+            raise ValueError("tf32=True is the one-pass twin of the f32 kernel: give it f32 inputs")
+        with tf32_numerics(False):
+            return _onepass_softmax_pv(
+                torch.matmul(tf32_round(q), tf32_round(k).transpose(-1, -2)), v)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if q.dtype == torch.float32:
         return torch.matmul(torch.softmax(s, dim=-1), v)
@@ -173,16 +256,19 @@ def noncausal_attention_plain(q, k, v):
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
 
 
-def flash_attention_plain(q, k, v):
+def flash_attention_plain(q, k, v, precision: str = "highest"):
     """K5: the function of :func:`noncausal_attention_plain` (non-causal,
     no bias, no mask, q pre-scaled). Launches the bf16 kernel of
-    ``csrc/flash_attention_bf16.cu`` or, in f32, K4's kernel of
-    ``csrc/flash_attention.cu`` for CUDA tensors (contiguous, dh = 64) and
-    runs the plain version for CPU tensors.
+    ``csrc/flash_attention_bf16.cu`` (at any precision) or, in f32, K4's
+    kernel of ``csrc/flash_attention.cu`` (3xTF32 at ``"highest"``, one
+    TF32 pass at ``"high"`` and ``"default"``) for CUDA tensors
+    (contiguous, dh = 64) and runs the plain version in f32 for CPU tensors.
+    An unknown ``precision`` raises ValueError.
 
     Counterpart of ``audiotoken_tpu/ops/flash_attention.py:
     _flash_attention_plain`` (Pallas kernels ``_kernel_onepass`` and
     ``_kernel_plain``), which Bark-fine's attention reaches."""
+    passes = kernel_passes(precision)
     if q.device.type == "cpu":
         return noncausal_attention_plain(q, k, v)
     if q.device.type != "cuda":
@@ -197,10 +283,15 @@ def flash_attention_plain(q, k, v):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    _build.launch(f"flash_attention_plain_{_build.DTYPE_SUFFIX[q.dtype]}", q.device,
-                  q, k, v, out, B * H, T)
-    flash_attention_plain.launches += 1
+    onepass = q.dtype == torch.float32 and passes == 1
+    _build.launch(f"flash_attention_plain_{_build.DTYPE_SUFFIX[q.dtype]}"
+                  + ("_1pass" if onepass else ""), q.device, q, k, v, out, B * H, T)
+    if onepass:
+        flash_attention_plain.launches_1pass += 1
+    else:
+        flash_attention_plain.launches += 1
     return out
 
 
-flash_attention_plain.launches = 0
+flash_attention_plain.launches = 0  # the bf16 kernel's and the f32 3xTF32 kernel's
+flash_attention_plain.launches_1pass = 0  # the f32 one-pass kernel's

@@ -16,9 +16,14 @@ So:
                 plain convolutions of EnCodec, the semantic encoders' first
                 norm); its f32 products run in TF32, as ``DEFAULT``'s do
 
-The hand-written f32 kernels keep f32 accuracy under every policy: f32
-FMAs, or 3xTF32 split precision on the tensor cores (K1, K3, K4, K5's f32
-path).
+The hand-written f32 kernels follow the JAX kernels they port. K1, K2 and
+K3 take no precision in the JAX package (their dots are fixed at
+``HIGHEST``), so they keep f32 accuracy under every policy: f32 FMAs, or
+3xTF32 split precision on the tensor cores. K4 and K5's f32 path take the
+JAX kernel's ``precision``, which their callers pass explicitly: 3xTF32 at
+``HIGHEST``, one TF32 pass at ``HIGH`` (which the JAX kernel lowers to
+``DEFAULT``) and ``DEFAULT``; so ``high``, ``default`` and ``bfloat16``
+run them in one pass, as the JAX package runs its attention kernel.
 
 cuDNN runs f32 convolutions in TF32 unless told otherwise, which costs
 about three decimal digits and flips late-codebook tokens. A policy
@@ -107,10 +112,11 @@ class StagePrecision:
         conv         the conv module's two pointwise linears
         vq           the nearest-centroid distance product (ops/lookup.py)
 
-    The port's attention is kernel K4, which runs 3xTF32 (f32-accurate)
-    under every setting, so ``attn_kernel`` has no effect yet; the port has
-    no XLA attention path, so ``attn_scores``, ``attn_pos`` and ``attn_pv``
-    are accepted and have none either, as on the JAX package's flash path.
+    The port's attention is kernel K4, which takes ``attn_kernel``'s
+    setting as its ``precision``: 3xTF32 (f32-accurate) at ``highest``, one
+    TF32 pass at ``high`` and ``default``. The port has no XLA attention
+    path, so ``attn_scores``, ``attn_pos`` and ``attn_pv`` are accepted and
+    have no effect, as on the JAX package's flash path.
     The conv module's depthwise conv is not a stage: it is IEEE f32 under
     every setting, as the JAX package's shift-sum has no precision at all.
 

@@ -62,7 +62,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      fine pass; both walls and the waveforms' largest difference;
   5c. the decode golden gate at full width, f32 and ``highest``, against
      ``tests/torch_goldens/decode_semantic_m_s0.npz`` (made by the JAX
-     package): greedy AR tokens, argmax fine codes, and the waveforms;
+     package): greedy AR tokens, argmax fine codes, and the waveforms; the
+     f32 fine stage once more at ``fine_precision="default"``, which must
+     launch K5's one-pass form 24 times a pass and the 3-pass one never
+     (its agreement with the golden printed);
   3d. K8 (the attention ablations and their baseline ``full64``) against
      its plain twins at [16, 16, 1024, 64] bf16, each mode and tile; then the
      K8 path, the attention micro-profile of
@@ -82,6 +85,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
      shifted by one, or clamped one step inside either edge, lies at least
      ten times the gate away; the form with neither term at T = 1024 must
      launch K5 and not K4;
+  3g. the one-pass form of K4 and K5's f32 path (``precision="default"``
+     or ``"high"``: ``csrc/flash_attention.cu`` with one TF32 pass) at
+     [8, 16, 1500, 64] with the rel term and a mask, [8, 12, 1499, 64]
+     with the mask alone and [8, 16, 1024, 64] (K5): one launch each
+     through the public op, counted apart from the 3-pass kernel's; each
+     within ``ONEPASS_SHARE`` of the output's scale of its TF32 twin (the
+     plain version's ``tf32=True``), its distance from the f32 twin
+     printed; timed beside the 3-pass kernel, the twin and SDPA in f32 with
+     the TF32 switches on (naming the backend it took), with its bound in
+     one TF32 pass;
   4d. the semantic_s main path: ``AudioToken(Tokenizers.semantic_s)``
      encode of WAV files (one of 90 s, in 30 s chunks), then
      ``HubertEncoder`` at 8 and 32 x 30 s of int16 PCM in both attention
@@ -117,7 +130,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      that every ``highest`` line equals what the golden phase read, and
      that ``mixed``'s lines equal ``highest``'s on every exactness row of
      every seed; the other modes are measured, not gated. K1-K3 (acoustic)
-     and K4 (the semantic encoders) must launch during it. Then seed 0's
+     and K4 (the semantic encoders) must launch during it, K4 in one TF32
+     pass under ``high``, ``default`` and ``bfloat16`` and in 3xTF32 under
+     ``highest`` and ``mixed`` (the other form not at all). Then seed 0's
      encoder built with ``buckets=`` one 12 s bucket must pad the
      battery's 8 s rows to it and give the ids that the default grid gives
      the rows padded to 12 s by hand.
@@ -183,7 +198,8 @@ Every kernel entry carries ``bound_ms``, the least time the card could take
 for the same work: the larger of its operations over the H100's peak for
 their type (67 TFLOP/s f32 FMAs, 989 TFLOP/s bf16; K1's, K3's and K4's
 f32-accurate products in 3xTF32, three passes at 495 TFLOP/s, with the FMA
-bound beside it as ``bound_f32_ms``) and its bytes (each input read once,
+bound beside it as ``bound_f32_ms``; the one-pass forms one pass at 495
+TFLOP/s) and its bytes (each input read once,
 each output written once) over 3.35 TB/s; ``bound_by`` says which.
 ``library_ms`` is one PyTorch call computing the same function where there
 is one (timed here, never called by the port), else null.
@@ -234,6 +250,7 @@ from audiotoken_tpu_torch.encoders import (  # noqa: E402
 )
 from audiotoken_tpu_torch.io import _native  # noqa: E402
 from audiotoken_tpu_torch.io.wavfile import read_wav, write_wav  # noqa: E402
+from audiotoken_tpu_torch.nn.bark_fine import BarkFineGenerator  # noqa: E402
 from audiotoken_tpu_torch.nn.gpt import GPT, GPTConfig, GPTSampler  # noqa: E402
 from audiotoken_tpu_torch.nn.hubert import feature_lengths  # noqa: E402
 from audiotoken_tpu_torch.ops import _build  # noqa: E402
@@ -271,7 +288,7 @@ from audiotoken_tpu_torch.ops.seanet_front import (  # noqa: E402
     seanet_front_plain,
 )
 from audiotoken_tpu_torch.runtime import executor  # noqa: E402
-from audiotoken_tpu_torch.runtime.precision import get_policy  # noqa: E402
+from audiotoken_tpu_torch.runtime.precision import get_policy, tf32_numerics  # noqa: E402
 from audiotoken_tpu_torch.train.cluster_diagnostics import compare_real_vs_random  # noqa: E402
 from audiotoken_tpu_torch.train.gpt_train import TrainStep  # noqa: E402
 from audiotoken_tpu_torch.train.vq_train import (  # noqa: E402
@@ -308,6 +325,14 @@ BF16_SHARE = 2**-6
 # a bf16 unit of the output's scale
 K5_SHARE = 2**-7
 REL_SENSITIVITY = 10  # 3f: a wrong rel term must move the output this many gates
+# 3g: the one-pass kernel against its TF32 twin, which rounds at the kernel's
+# points (q, k, E, p against the running maximum of its key tiles, v); they
+# differ by f32 sums in another order, and where a p lands on the other side
+# of a rounding boundary after an f32-level difference in its score, which
+# moves an output by at most 2^-10 p |v| / l
+ONEPASS_SHARE = 2**-12
+#: the precision modes whose K4 runs in one TF32 pass (5f's gate)
+ONEPASS_MODES = ("high", "default", "bfloat16")
 GOLDEN_MARGIN = 1e-4  # a greedy AR step whose top-1/top-2 logit gap is below may flip
 # H100 SXM peaks (NVIDIA's data sheet, dense): f32 outside the tensor cores,
 # bf16 and TF32 tensor cores, and HBM3
@@ -324,6 +349,8 @@ def reset_counts():
     """Every kernel's launch count to 0, just before a main path runs."""
     for kern in KERNELS:
         kern.launches = 0
+    for kern in (flash_attention_relkey, flash_attention_plain):  # their one-pass forms
+        kern.launches_1pass = 0
     attn_ablation.launches.clear()
 
 
@@ -371,11 +398,9 @@ def cold_ms(fns, n=60):
     return device_ms(lambda: next(calls)(), n=n)
 
 
-def device_split(fn, top=6):
-    """One call of ``fn`` under ``torch.profiler``: a line with its wall
-    time (synchronised), the device's busy time (the union of the kernels'
-    spans: side streams may overlap) and idle share, and the ``top`` kernels
-    by device time, summed by name."""
+def _profiled(fn):
+    """One call of ``fn`` under ``torch.profiler`` -> (its wall in s,
+    synchronised; the device's events)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -384,11 +409,31 @@ def device_split(fn, top=6):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    busy = _union_s([(e.time_range.start, e.time_range.end) for e in events])
+    return wall, [e for e in prof.events() if e.device_type.name == "CUDA"]
+
+
+def _device_time_by_name(events):
     by_name = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.end - e.time_range.start
+    return by_name
+
+
+def top_kernel(fn):
+    """The device kernel that takes most of one call of ``fn``, by name:
+    which backend a library call took."""
+    by_name = _device_time_by_name(_profiled(fn)[1])
+    return max(by_name, key=by_name.get) if by_name else "no device kernel"
+
+
+def device_split(fn, top=6):
+    """One call of ``fn`` under ``torch.profiler``: a line with its wall
+    time (synchronised), the device's busy time (the union of the kernels'
+    spans: side streams may overlap) and idle share, and the ``top`` kernels
+    by device time, summed by name."""
+    wall, events = _profiled(fn)
+    busy = _union_s([(e.time_range.start, e.time_range.end) for e in events])
+    by_name = _device_time_by_name(events)
     kernels = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return (f"wall {wall * 1e3:.1f} ms under the profiler, device busy {busy * 1e3:.1f} ms "
             f"(idle {100 * (1 - busy / wall):.1f} %); by device time: "
@@ -398,8 +443,9 @@ def device_split(fn, top=6):
 def bound(flops, nbytes, kind):
     """{"bound_ms", "bound_by"}: the larger of ``flops`` at the card's peak
     for ``kind`` and ``nbytes`` at its memory rate. ``kind`` is "f32" (FMAs),
-    "bf16" (tensor cores) or "tf32x3": f32-accurate products in split
-    precision on the tensor cores, three TF32 passes per operation."""
+    "bf16" (tensor cores), "tf32" (one TF32 pass on the tensor cores) or
+    "tf32x3": f32-accurate products in split precision on the tensor cores,
+    three TF32 passes per operation."""
     t_ops = (3 * flops / PEAK_FLOPS["tf32"] if kind == "tf32x3"
              else flops / PEAK_FLOPS[kind]) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1257,6 +1303,25 @@ def phase5c_decode_goldens(dev):
     if agree < 0.999:
         failures.append(f"fine {agree:.6f}")
 
+    # the same fine stage at the decoder's default fine_precision in f32
+    # (fine_dtype="float32", fine_precision="default"): K5's one-pass form
+    fine_policy = get_policy("default")
+    gen = BarkFineGenerator(dec.bark.model, precision=fine_policy.matmul_precision)
+    reset_counts()
+    with fine_policy.numerics():
+        fine1 = gen.generate_fine_batch(g["coarse"], temperature=None, seed=0)
+    torch.cuda.synchronize()
+    onepass = flash_attention_plain.launches_1pass
+    agree1 = float((fine1 == g["fine"]).mean())
+    ok = onepass == FINE_LAYERS * gen.passes and flash_attention_plain.launches == 0
+    say(f"[5c] fine codes at fine_precision='default' (K5 in one TF32 pass): agreement with "
+        f"the golden {agree1:.6f} (not gated); K5 launches one pass {onepass}, 3xTF32 "
+        f"{flash_attention_plain.launches} ({FINE_LAYERS} x {gen.passes} passes expected in "
+        f"one pass) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"fine at default launched K5 {onepass} one-pass, "
+                        f"{flash_attention_plain.launches} 3-pass")
+
     acoustic = dec.acoustic_decoder
     wav = acoustic.forward_codes(g["fine"]).cpu().numpy()
     acoustic.output_dtype = "int16"
@@ -1273,6 +1338,7 @@ def phase5c_decode_goldens(dev):
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError("decode golden gate failed: " + "; ".join(failures))
+    return onepass
 
 
 def _ar_rows_gate(tag, tokens, g):
@@ -1476,6 +1542,91 @@ def rel_term_misses(q, k, v, E, mask, left=64, right=8):
             .abs().max().item() for name, (e, lo, hi) in wrong.items()}
 
 
+def phase3g_flash_onepass(dev):
+    """The one-pass form of K4 and K5's f32 path (``csrc/flash_attention.cu``
+    with PASSES = 1, what ``precision="default"`` and ``"high"`` launch): K4
+    with the rel term and a mask at [8, 16, 1500, 64], K4 with the mask
+    alone at [8, 12, 1499, 64], K5 f32 at [8, 16, 1024, 64]. Each is
+    launched once through its public op at "default" (the one-pass count
+    rises by one, the 3-pass count not at all), held against its TF32 twin
+    within ONEPASS_SHARE of the output's scale, its distance from the f32
+    twin printed; then timed beside the 3-pass kernel, the twin, and SDPA in
+    f32 with the TF32 switches on (the mask as a boolean ``attn_mask``),
+    with the backend SDPA took; its bound in one TF32 pass. Returns the
+    kernels line's entries."""
+    rng = np.random.default_rng(7)
+
+    def t(shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    def masked(B, T):
+        mask = torch.ones((B, T), device=dev)
+        mask[1, T - 377:] = 0.0
+        mask[5, T // 2:] = 0.0
+        return mask
+
+    B, H, T = 8, 16, 1500
+    q, k, v, E, mask = (t((B, H, T, 64), 0.3), t((B, H, T, 64), 0.3), t((B, H, T, 64), 1.0),
+                        t((73, 64), 0.02), masked(B, T))
+    B2, H2, T2 = 8, 12, 1499
+    q2, k2, v2, mask2 = (t((B2, H2, T2, 64), 0.3), t((B2, H2, T2, 64), 0.3),
+                         t((B2, H2, T2, 64), 1.0), masked(B2, T2))
+    keep2 = mask2.bool()[:, None, None, :]
+    q3, k3, v3 = t((8, 16, 1024, 64), 0.125), t((8, 16, 1024, 64), 1.0), t((8, 16, 1024, 64), 1.0)
+    cases = (
+        ("flash_attention_relkey_1pass", flash_attention_relkey, (q, k, v, E, mask),
+         lambda tf: flash_attention_relkey_plain(q, k, v, E, mask, tf32=tf), None),
+        ("flash_attention_norel_1pass", flash_attention_relkey, (q2, k2, v2, None, mask2),
+         lambda tf: flash_attention_relkey_plain(q2, k2, v2, None, mask2, tf32=tf),
+         lambda: F.scaled_dot_product_attention(q2, k2, v2, attn_mask=keep2)),
+        ("flash_attention_plain_f32_1pass", flash_attention_plain, (q3, k3, v3),
+         lambda tf: noncausal_attention_plain(q3, k3, v3, tf32=tf),
+         lambda: F.scaled_dot_product_attention(q3, k3, v3, scale=1.0)),
+    )
+    res, failures = {}, []
+    for name, op, args, twin, lib in cases:
+        n3, n1 = op.launches, op.launches_1pass
+        out = op(*args, precision="default")
+        torch.cuda.synchronize()
+        if (op.launches - n3, op.launches_1pass - n1) != (0, 1):
+            failures.append(f"{name}: precision='default' launched {op.launches - n3} 3-pass "
+                            f"and {op.launches_1pass - n1} one-pass kernels, expected 0 and 1")
+        ref = twin(True)
+        err = (out - ref).abs().max().item()
+        gate = ONEPASS_SHARE * ref.abs().max().item()
+        dist_f32 = (out - twin(False)).abs().max().item()
+        del out, ref
+        ms = cuda_ms(lambda: op(*args, precision="default"), reps=9)
+        ms_3pass = cuda_ms(lambda: op(*args, precision="highest"), reps=9)
+        plain_ms = cuda_ms(lambda: twin(True), reps=5)
+        library_ms = backend = None
+        if lib is not None:
+            with tf32_numerics(True):
+                library_ms = cuda_ms(lib, reps=9)
+                backend = top_kernel(lib)
+        Bx, Hx, Tx, _ = args[0].shape
+        P = 0 if len(args) < 4 or args[3] is None else args[3].shape[0]
+        flops = (4 * Tx * Tx + 2 * Tx * P) * 64 * Bx * Hx
+        moved = 4 * nbytes(args[0]) + (0 if P == 0 else nbytes(args[3])) + (
+            nbytes(args[4]) if len(args) > 4 else 0)
+        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         **bound(flops, moved, "tf32"), ms_3pass=ms_3pass, dist_f32=dist_f32,
+                         library_backend=backend)
+        say(f"[3g] {name} [{Bx}, {Hx}, {Tx}, 64] f32"
+            + (", E [73, 64]" if P else "") + (", masked" if len(args) > 4 else "")
+            + f": max|kernel-TF32 twin| {err:.3e} (gate {gate:.3e})  max|kernel-f32 twin| "
+              f"{dist_f32:.3e}  one pass {ms:.4f} ms  3xTF32 {ms_3pass:.4f} ms  twin "
+              f"{plain_ms:.3f} ms"
+            + ("" if lib is None else f"  SDPA (TF32 on) {library_ms:.4f} ms [{backend}]")
+            + f"  bound {res[name]['bound_ms']:.4f} ms ({res[name]['bound_by']}, "
+              f"{100 * res[name]['bound_ms'] / ms:.1f} % of it)")
+        if not err <= gate:
+            failures.append(f"{name} differs from its TF32 twin by {err} > {gate}")
+    if failures:
+        raise AssertionError("one-pass kernels: " + "; ".join(failures))
+    return res
+
+
 def phase4d_semantic_s(dev, tmp):
     """The semantic_s entry points; returns K4's launch count, the facade
     (its seed-0 encoder is reused by phase 5d) and the default form's
@@ -1588,11 +1739,26 @@ def phase5f_precision_ladder(dev, tok, keep):
     encs = keep["encs"]
     torch.cuda.synchronize()
     reset_counts()
-    lad = ladder.run_ladder(tok, encs, batches=(8, 32), say=say, tag="[5f]")
+    k4 = None if tok == "acoustic" else (
+        lambda: {"3xTF32": flash_attention_relkey.launches,
+                 "one pass": flash_attention_relkey.launches_1pass})
+    lad = ladder.run_ladder(tok, encs, batches=(8, 32), say=say, tag="[5f]", counts=k4)
     kernels = ACOUSTIC_KERNELS if tok == "acoustic" else (flash_attention_relkey,)
     counts = {k.__name__: k.launches for k in kernels}
+    if k4:
+        counts["flash_attention_relkey_1pass"] = flash_attention_relkey.launches_1pass
     say(f"[5f] {tok}: kernel launches during the ladder: {counts}")
     failures = [f"{name} was not launched" for name, n in counts.items() if n < 1]
+    for mode, res in lad.items() if k4 else ():
+        # one pass where the attention kernel's precision is DEFAULT (or HIGH)
+        n = res["launches"]
+        onepass = mode in ONEPASS_MODES
+        ok = (n["one pass"] > 0 and n["3xTF32"] == 0) if onepass else (
+            n["3xTF32"] > 0 and n["one pass"] == 0)
+        say(f"[5f] {tok} {mode:8s}: K4 launches {n} ({'one pass' if onepass else '3xTF32'} "
+            f"expected) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{mode} launched K4 {n}")
     exact = ladder.exact_cases(tok, names)
     for seed in encs:
         line = lad["highest"]["lines"][seed]
@@ -2617,6 +2783,7 @@ def main():
         res.update(phase3e_flash_norel(dev))
         k4_bf16_counts, k4_bf16 = phase3f_flash_bf16(dev)
         res.update(k4_bf16)
+        res.update(phase3g_flash_onepass(dev))
     with tempfile.TemporaryDirectory() as tmp:
         counts, device_rtfx = phase4_main_path(dev, tmp)
         keep = {}
@@ -2627,14 +2794,16 @@ def main():
         counts["flash_attention_relkey"], at, m8 = phase4b_semantic_m(dev, tmp)
         keep = {}
         phase5b_semantic_m_goldens(dev, tmp, at, keep)
-        phase5f_precision_ladder(dev, "semantic_m", keep)
+        _, c5f = phase5f_precision_ladder(dev, "semantic_m", keep)
+        counts["flash_attention_relkey_1pass"] = c5f["flash_attention_relkey_1pass"]
         del at, keep
         torch.cuda.empty_cache()
         counts["flash_attention_norel"], at, device_rtfx["semantic_s"] = phase4d_semantic_s(
             dev, tmp)
         keep = {}
         phase5d_semantic_s_goldens(dev, tmp, at, keep)
-        phase5f_precision_ladder(dev, "semantic_s", keep)
+        _, c5f = phase5f_precision_ladder(dev, "semantic_s", keep)
+        counts["flash_attention_norel_1pass"] = c5f["flash_attention_relkey_1pass"]
         del at, keep
         torch.cuda.empty_cache()
         c = phase4e_corpus(dev, tmp, args.seed, device_rtfx)
@@ -2645,7 +2814,7 @@ def main():
         loss_hi = phase6c_gpt_training(dev, tmp)
         counts["decode_ffn_tp"] = phase7_mesh(dev, tmp, ids_s0, m8, loss_hi, c)
     decode_counts = phase4c_decode(dev)
-    phase5c_decode_goldens(dev)
+    counts["flash_attention_plain_f32_1pass"] = phase5c_decode_goldens(dev)
     say(f"[4c] K2 launches in the acoustic decoder: {decode_counts.pop('lstm_layer')}")
     counts.update(decode_counts)
     counts.update(k4_bf16_counts)
@@ -2686,6 +2855,17 @@ def main():
         ("flash_attention_relkey_bf16_norel", "flash_attention_relkey_bf16_norel",
          "audiotoken_tpu_torch/csrc/flash_attention_bf16.cu",
          "audiotoken_tpu/ops/flash_attention.py:519"),
+        # the one-pass forms (precision "high", "default", "bfloat16"): K4 on
+        # 5f's semantic_m and semantic_s, K5 f32 on 5c's fine stage at "default"
+        ("flash_attention_relkey_1pass", "flash_attention_relkey_1pass",
+         "audiotoken_tpu_torch/csrc/flash_attention.cu",
+         "audiotoken_tpu/ops/flash_attention.py:519"),
+        ("flash_attention_norel_1pass", "flash_attention_norel_1pass",
+         "audiotoken_tpu_torch/csrc/flash_attention.cu",
+         "audiotoken_tpu/ops/flash_attention.py:519"),
+        ("flash_attention_plain_f32_1pass", "flash_attention_plain_f32_1pass",
+         "audiotoken_tpu_torch/csrc/flash_attention.cu",
+         "audiotoken_tpu/ops/flash_attention.py:287"),
     ]
     # the TPU script's ablations (:108), its one-pass kernel (:157), and for
     # full its baseline, the Pallas kernel of K5's tiled form

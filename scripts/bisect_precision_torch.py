@@ -2,7 +2,8 @@
 GPU, and derive the "mixed" stage map from it.
 
     python scripts/bisect_precision_torch.py [--seeds 0,7,13,42]
-        [--sweep demote,promote] [--mix stage=policy,...] [--rtfx]
+        [--sweep demote,promote] [--groups front,ffn,attn,conv,vq]
+        [--mix stage=policy,...] [--rtfx]
         [--log tests/torch_goldens/BISECT_H100.log]
 
 Counterpart of ``scripts/bisect_precision.py``, through the production
@@ -26,7 +27,9 @@ encodes the 12-case battery of ``scripts/golden_cases.py``:
 
 Stage groups (``StagePrecision.STAGES``): front = fbank, proj; ffn =
 ffn_in, ffn_out; attn = attn_qkv, attn_out and the four attention-kernel
-stages (K4 is 3xTF32 under every setting); conv = conv; vq = vq.
+stages (K4 takes ``attn_kernel``: 3xTF32 at "highest", one TF32 pass at
+"high"); conv = conv; vq = vq. ``--groups`` sweeps only the groups named;
+the derived map needs all five.
 
 A configuration's line per seed: its worst exactness row against the golden
 (``tests/goldens/battery_semantic_m.npz``; the exactness rows are all cases
@@ -126,11 +129,16 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seeds", default=",".join(map(str, WEIGHT_SEEDS)))
     ap.add_argument("--sweep", default="demote,promote")
+    ap.add_argument("--groups", default=",".join(GROUPS))
     ap.add_argument("--mix", action="append", default=[])
     ap.add_argument("--rtfx", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--log", default=None)
     args = ap.parse_args()
+    groups = [g for g in args.groups.split(",") if g]
+    unknown = set(groups) - set(GROUPS)
+    if unknown:
+        ap.error(f"unknown stage groups {sorted(unknown)}; use some of {list(GROUPS)}")
     log = open(args.log, "w") if args.log else None
 
     def say(*a):
@@ -157,16 +165,16 @@ def main():
     demoted, promoted = {}, {}
     if "demote" in sweeps:
         say("-- demote sweep: highest + one group at high (TF32)")
-        for g, stages in GROUPS.items():
-            demoted[g] = b.run(f"demote {g}", "highest", {s: "high" for s in stages})
+        for g in groups:
+            demoted[g] = b.run(f"demote {g}", "highest", {s: "high" for s in GROUPS[g]})
     if "promote" in sweeps:
         say("-- promote sweep: high + one group at highest")
-        for g, stages in GROUPS.items():
-            promoted[g] = b.run(f"promote {g}", "high", {s: "highest" for s in stages})
+        for g in groups:
+            promoted[g] = b.run(f"promote {g}", "high", {s: "highest" for s in GROUPS[g]})
     for mix in args.mix:
         b.run(f"mix {mix}"[:24], "high", parse_mix(mix), rtfx=args.rtfx)
 
-    if demoted and promoted:
+    if len(demoted) == len(promoted) == len(GROUPS):
         say("-- derived map: high + the demote sweep's origins at highest")
         chosen = [g for g in GROUPS if demoted[g]]
         # the groups left, those whose promotion alone leaves fewest rows moved first

@@ -142,11 +142,14 @@ def device_rtfx(enc, pcm, sr, reps=3):
     return pcm.shape[0] * pcm.shape[1] / sr / statistics.median(walls), walls
 
 
-def run_ladder(tok, encs, batches=(8, 32), say=print, tag="[ladder]", modes=None):
+def run_ladder(tok, encs, batches=(8, 32), say=print, tag="[ladder]", modes=None,
+               counts=None):
     """The ladder over ``encs`` ({seed: encoder of ``tok``}), which are left
     at "highest". -> {mode: {"lines": {seed: per-case agreement},
     "ids": {seed: ids}, "summary": {seed: summarize()}, "rtfx": {B: RTFx}}};
-    RTFx with the first seed's encoder."""
+    RTFx with the first seed's encoder. With ``counts`` (a callable giving
+    {name: launch count}), each mode's entry also has "launches": how much
+    each count rose while that mode ran."""
     audio, lengths, names, golden = battery_inputs(tok)
     sr = SAMPLE_RATE[tok]
     rng = np.random.default_rng(11)
@@ -157,6 +160,7 @@ def run_ladder(tok, encs, batches=(8, 32), say=print, tag="[ladder]", modes=None
     try:
         for mode in modes or MODES[tok]:
             res = out[mode] = {"lines": {}, "ids": {}, "summary": {}, "rtfx": {}}
+            before = counts() if counts else {}
             for seed, enc in encs.items():
                 enc.set_precision(mode)
                 t0 = time.perf_counter()
@@ -174,6 +178,8 @@ def run_ladder(tok, encs, batches=(8, 32), say=print, tag="[ladder]", modes=None
                 res["rtfx"][B] = rtfx
                 say(f"{tag} {tok} {mode:8s} B={B} x 30 s int16: RTFx {rtfx:.1f} (walls "
                     f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms)")
+            if counts:
+                res["launches"] = {n: c - before[n] for n, c in counts().items()}
     finally:
         for enc in encs.values():
             enc.set_precision("highest")

@@ -1,18 +1,24 @@
 """Where the time of one w2v-BERT conformer block goes, on an NVIDIA GPU.
 
     python scripts/profile_conformer_stages_torch.py [--batch 8] [--precision highest]
+        [--attn-kernel highest]
 
 One block of semantic_m's encoder at its real width (1024, 16 heads, FFN
 4096, depthwise kernel 31; random weights) on B rows of 30 s (T = 1500
-frames, the last row cut short by the mask), under ``highest`` (IEEE f32
-in cuBLAS and cuDNN, as the encoder runs for token parity). Each
+frames, the last row cut short by the mask), under ``--precision``
+(``highest``, IEEE f32 in cuBLAS and cuDNN, as the encoder runs for token
+parity, by default; ``high`` and ``default`` TF32, with K4 in one TF32
+pass). ``--attn-kernel`` overrides the ``attn_kernel`` stage alone, so
+that ``--precision high --attn-kernel highest`` times the block under
+``high`` with the 3xTF32 K4. Each
 component is timed alone with CUDA events (a warm-up, the median of 5) on
 inputs of its real shape, in the order the block runs them:
 
   norms      the five LayerNorms (two FFN, attention, conv, final)
   ffn        both half-step FFNs: the 1024 -> 4096 SGEMMs with SiLU, the
              4096 -> 1024 SGEMMs, the scale and residual
-  attention  the q, k, v projections, K4 (rel-key flash attention, 3xTF32),
+  attention  the q, k, v projections, K4 (rel-key flash attention, at the
+             ``attn_kernel`` stage's precision),
              the out projection, the head reshapes
   conv       its LayerNorm and mask, pw1 (1024 -> 2048) and the GLU, the
              depthwise conv (IEEE under every setting), its LayerNorm and
@@ -38,10 +44,7 @@ sys.path.insert(0, HERE)
 from profile_fine_stages_torch import cuda_ms  # noqa: E402
 from audiotoken_tpu_torch.nn.conformer import ConformerBlock, W2VBertConfig  # noqa: E402
 from audiotoken_tpu_torch.ops.flash_attention import flash_attention_relkey  # noqa: E402
-from audiotoken_tpu_torch.runtime.precision import (  # noqa: E402
-    as_stage_precision,
-    tf32_numerics,
-)
+from audiotoken_tpu_torch.runtime.precision import StagePrecision, tf32_numerics  # noqa: E402
 
 
 def components(block, x, mask, P, cfg):
@@ -82,7 +85,7 @@ def components(block, x, mask, P, cfg):
                                                 a.transpose(1, 2).reshape(B, T, H))),
         ("attention", "K4", lambda: flash_attention_relkey(
             q, k, v, at.distance_embedding, mask, left=cfg.left_max_position_embeddings,
-            right=cfg.right_max_position_embeddings)),
+            right=cfg.right_max_position_embeddings, precision=P("attn_kernel"))),
         ("attention", "out projection", numerics("attn_out", lambda: at.out(x))),
         ("conv", "mask multiply", lambda: x * mask[:, :, None]),
         ("conv", "pw1 1024->2048 SGEMM + GLU", numerics(
@@ -98,6 +101,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--precision", default="highest")
+    ap.add_argument("--attn-kernel", default=None,
+                    help="the attn_kernel stage's policy, over --precision's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this profile runs on an NVIDIA GPU")
@@ -111,14 +116,16 @@ def main():
     with torch.no_grad():
         block.attn.distance_embedding.normal_(0.0, 0.02)
         block.conv.dw_weight.normal_(0.0, 0.1)
-    P = as_stage_precision(args.precision)
+    P = StagePrecision(args.precision,
+                       None if args.attn_kernel is None else {"attn_kernel": args.attn_kernel})
     x = torch.randn((B, T, cfg.hidden_size), device=dev)
     mask = torch.ones((B, T), device=dev)
     mask[-1, T // 2:] = 0.0
     block_ms = cuda_ms(lambda: block(x, mask, P))  # each stage sets its own switches
     parts = [(g, name, cuda_ms(fn)) for g, name, fn in components(block, x, mask, P, cfg)]
     print(f"w2v-BERT block, B={B} x T={T}, hidden {cfg.hidden_size}, precision "
-          f"{args.precision}: block {block_ms:.3f} ms", flush=True)
+          f"{args.precision}, attn_kernel {P('attn_kernel')}: block {block_ms:.3f} ms",
+          flush=True)
     total = 0.0
     for g, name, ms in parts:
         total += ms

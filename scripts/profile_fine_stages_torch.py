@@ -94,7 +94,7 @@ def main():
     print(f"Bark-fine 24 x 1024, bf16, B={B} windows of {W} frames", flush=True)
 
     fwd = cuda_ms(lambda: model(buf, 2))
-    bark_fine.flash_attention_plain = noncausal_attention_plain
+    bark_fine.flash_attention_plain = lambda q, k, v, precision: noncausal_attention_plain(q, k, v)
     try:
         fwd_plain = cuda_ms(lambda: model(buf, 2))
     finally:

@@ -4,6 +4,11 @@
 atol 2e-5: f32 reassociation only, as the JAX package's own flash test
 states. The CUDA kernel itself is held against this plain version on the
 card (tests/test_torch_kernels_cuda.py, chip_smoke.py).
+
+The wrappers' ``precision`` against the JAX kernel's at ``HIGHEST``,
+``HIGH`` and ``DEFAULT`` (interpret mode computes all three in f32, and the
+port's CPU path does too), its refusals, and the one-pass kernel's twin
+(``tf32=True``) against a numpy transcription of the kernel's loop.
 """
 
 import jax
@@ -14,13 +19,18 @@ import torch
 
 from audiotoken_tpu.nn.conformer import _skew_band
 from audiotoken_tpu.ops.attention import padding_bias as jax_padding_bias
+from audiotoken_tpu.ops.flash_attention import _flash_attention_plain as jax_flash_plain
 from audiotoken_tpu.ops.flash_attention import flash_attention_relkey as jax_flash
 from audiotoken_tpu_torch.ops.attention import padding_bias
 from audiotoken_tpu_torch.ops.flash_attention import (
+    ONEPASS_KEY_TILE,
+    flash_attention_plain,
     flash_attention_relkey,
     flash_attention_relkey_bf16,
     flash_attention_relkey_plain,
+    kernel_passes,
     noncausal_attention_plain,
+    tf32_round,
 )
 from torch_tf32 import tf32
 
@@ -215,3 +225,171 @@ def test_tf32_split_keeps_f32_accuracy(terms):
         assert err <= 1e-5, err
     else:
         assert err > 1e-5, err
+
+
+# --- precision -----------------------------------------------------------------
+
+JAX_PRECISION = {"highest": HIGHEST, "high": jax.lax.Precision.HIGH,
+                 "default": jax.lax.Precision.DEFAULT}
+
+
+@pytest.mark.parametrize("precision", list(JAX_PRECISION))
+@pytest.mark.parametrize("form", ["rel_mask", "mask", "plain"])
+def test_precision_matches_jax(form, precision):
+    """Each wrapper at each precision against the JAX function at the same
+    one (Pallas in interpret mode): on the CPU both compute in f32, so the
+    port's CPU path is the plain version at every precision, and no kernel
+    launch is counted. (The shapes and inputs of test_plain_matches_jax at
+    T = 256, and HIGHEST as its default: JAX's trace there is reused.)"""
+    T = 256
+    q, k, v, E = _inputs(T, 2, 2, T)
+    mask = np.ones((2, T), np.float32)
+    mask[-1, T - 40:] = 0.0
+    t = torch.from_numpy
+    counts = (flash_attention_relkey.launches, flash_attention_relkey.launches_1pass,
+              flash_attention_plain.launches, flash_attention_plain.launches_1pass)
+    jax_kw = {} if precision == "highest" else {"precision": JAX_PRECISION[precision]}
+    if form == "plain":
+        out = flash_attention_plain(t(q * 0.125), t(k), t(v), precision=precision).numpy()
+        ref = jax_flash_plain(q, k, v, interpret=True, **jax_kw)
+        plain = noncausal_attention_plain(t(q * 0.125), t(k), t(v)).numpy()
+    else:
+        E_ = E if form == "rel_mask" else None
+        out = flash_attention_relkey(t(q), t(k), t(v), None if E_ is None else t(E_), t(mask),
+                                     left=LEFT, right=RIGHT, precision=precision).numpy()
+        ref = jax_flash(q, k, v, E_, mask, left=LEFT, right=RIGHT, interpret=True, **jax_kw)
+        plain = _plain(q, k, v, E_, mask)
+    np.testing.assert_array_equal(out, plain)
+    np.testing.assert_allclose(out, np.asarray(ref), rtol=0, atol=ATOL)
+    assert (flash_attention_relkey.launches, flash_attention_relkey.launches_1pass,
+            flash_attention_plain.launches, flash_attention_plain.launches_1pass) == counts
+
+
+def test_kernel_passes():
+    """JAX's lowering: HIGH runs as DEFAULT, one pass; HIGHEST in three."""
+    assert [kernel_passes(p) for p in ("highest", "high", "default")] == [3, 1, 1]
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "HIGHEST", "fast", None])
+def test_unknown_precision_raises(precision):
+    q, k, v, E = map(torch.from_numpy, _inputs(2, 1, 1, 16))
+    with pytest.raises(ValueError, match="unknown precision"):
+        flash_attention_relkey(q, k, v, E, None, precision=precision)
+    with pytest.raises(ValueError, match="unknown precision"):
+        flash_attention_plain(q, k, v, precision=precision)
+    with pytest.raises(ValueError, match="unknown precision"):  # bf16 ignores it, but checks it
+        flash_attention_relkey(q.bfloat16(), k.bfloat16(), v.bfloat16(), None, None,
+                               precision=precision)
+
+
+@pytest.mark.parametrize("form", ["rel_mask", "plain"])
+def test_bf16_ignores_precision(form):
+    """The JAX body's bf16 dots are one pass at any precision: bf16 input
+    gives the same bits at every precision."""
+    q, k, v, E = (torch.from_numpy(a).bfloat16() for a in _inputs(5, 1, 2, 256))
+    mask = torch.ones((1, 256))
+    mask[0, 200:] = 0.0
+    outs = [flash_attention_plain(q, k, v, precision=p) if form == "plain" else
+            flash_attention_relkey(q, k, v, E.float(), mask, precision=p)
+            for p in JAX_PRECISION]
+    assert outs[0].dtype == torch.bfloat16
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+
+
+def test_tf32_round_matches_the_bit_rule():
+    """:func:`tf32_round` against the numpy bit computation of
+    tests/torch_tf32.py, and against the values round-to-nearest with ties
+    away from zero gives: ties, negatives, subnormals, values next to powers
+    of two, zeros, the largest finite values that stay finite."""
+    one = np.float32(1.0)
+    ulp = np.float32(2.0**-10)  # TF32's unit at 1
+    x = np.array([
+        1 + ulp / 2, -(1 + ulp / 2), 1 + 3 * ulp / 2, 1 + ulp / 2 - 2**-23, 1 + ulp / 2 + 2**-23,
+        2 - 2**-23, 2 - ulp / 4, np.nextafter(one, np.float32(0)), 0.5 + 2**-13, 0.0, -0.0,
+        1e-40, -1e-40, 2.0**-149, 2.0**-126 - 2.0**-149, 3e-39, -3.3e-39, 65504.0, 3.3e38,
+        -3.3e38, np.pi, -np.e,
+    ], np.float32)
+    got = tf32_round(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), tf32(x).view(np.uint32))
+    tiny = np.float32(2.0**-149)  # the least subnormal; TF32 keeps its 13 low bits at 0
+    want = {0: 1 + ulp, 1: -(1 + ulp), 2: 1 + 2 * ulp, 3: 1.0, 4: 1 + ulp, 5: 2.0, 6: 2.0,
+            7: 1.0, 9: 0.0, 11: 9 * 2**13 * tiny, 12: -9 * 2**13 * tiny, 13: 0.0}
+    for i, w in want.items():
+        assert got[i] == np.float32(w), (i, x[i], got[i], w)
+    assert np.signbit(got[10])
+    assert (got.view(np.uint32) & 0x1FFF == 0).all()
+    bits = np.random.default_rng(0).integers(0, 0x7F7FE000, 100_000, dtype=np.uint32)
+    bits[::2] |= np.uint32(0x80000000)
+    r = bits.view(np.float32)
+    np.testing.assert_array_equal(tf32_round(torch.from_numpy(r)).numpy().view(np.uint32),
+                                  tf32(r).view(np.uint32))
+
+
+def _onepass_loop(q, k, v, E, mask, scale):
+    """The one-pass kernel's loop, transcribed in numpy: each product one
+    TF32 pass (:func:`_split_product` with one term; q E^T the same, as the
+    kernel's FMAs over rounded operands), the online softmax over tiles of
+    ONEPASS_KEY_TILE keys, p rounded against the running maximum."""
+    T = q.shape[-2]
+    s = _split_product(q, np.swapaxes(k, -1, -2), 1)
+    if E is not None:
+        t = np.arange(T)
+        idx = np.clip(t[None, :] - t[:, None] + LEFT, 0, LEFT + RIGHT)
+        s = s + _split_product(q, E.T, 1)[:, :, t[:, None], idx]
+    s = s * np.float32(scale)
+    if mask is not None:
+        s = s + ((1.0 - mask) * np.finfo(np.float32).min)[:, None, None, :].astype(np.float32)
+    m = np.full(s.shape[:-1] + (1,), -np.inf, np.float32)
+    l = np.zeros_like(m)
+    acc = np.zeros(s.shape[:-1] + (DH,), np.float32)
+    for j in range(0, T, ONEPASS_KEY_TILE):
+        tile = s[..., j:j + ONEPASS_KEY_TILE]
+        m_new = np.maximum(m, tile.max(-1, keepdims=True))
+        alpha, p = np.exp(m - m_new), np.exp(tile - m_new)
+        l = l * alpha + p.sum(-1, keepdims=True)
+        acc = acc * alpha + _split_product(p, v[:, :, j:j + ONEPASS_KEY_TILE], 1)
+        m = m_new
+    return acc / np.maximum(l, 1e-30)
+
+
+@pytest.mark.parametrize("form", ["rel_mask", "plain"])
+def test_onepass_twin(form):
+    """``tf32=True`` is the one-pass kernel's function: it agrees with the
+    numpy transcription of the kernel's loop (products by
+    :func:`_split_product` with one term) within 2^-13 of the output's
+    scale, where a p that rounds the other way after an f32-level
+    difference in its score moves an output by at most 2^-10 p |v| / l; it
+    lies more than 1e-5 of that scale from the f64 reference, as one TF32
+    pass must (:func:`test_tf32_split_keeps_f32_accuracy`); and off the
+    twin flag the plain version is unchanged."""
+    q, k, v, E = _inputs(11, 1, 2, 200)
+    t = torch.from_numpy
+    if form == "plain":
+        E, mask = None, None
+        q = (q * 0.125).astype(np.float32)
+        twin = noncausal_attention_plain(t(q), t(k), t(v), tf32=True).numpy()
+        f32 = noncausal_attention_plain(t(q), t(k), t(v)).numpy()
+        ref64 = noncausal_attention_plain(*(t(a.astype(np.float64)) for a in (q, k, v))).numpy()
+        loop = _onepass_loop(q, k, v, None, None, 1.0)
+    else:
+        mask = np.ones((1, 200), np.float32)
+        mask[0, 150:] = 0.0
+        twin = flash_attention_relkey_plain(t(q), t(k), t(v), t(E), t(mask), LEFT, RIGHT,
+                                            tf32=True).numpy()
+        f32 = _plain(q, k, v, E, mask)
+        ref64 = xla_reference(*(a.astype(np.float64) for a in (q, k, v, E)), mask)
+        loop = _onepass_loop(q, k, v, E, mask, 0.125)
+    scale = np.abs(ref64).max()
+    assert twin.dtype == np.float32 and twin.shape == f32.shape
+    assert np.abs(twin - loop).max() <= 2**-13 * scale, np.abs(twin - loop).max() / scale
+    assert np.abs(twin - ref64).max() > 1e-5 * scale
+    assert np.abs(f32 - ref64).max() <= 1e-5 * scale
+
+
+def test_twin_takes_f32_only():
+    q, k, v, E = (torch.from_numpy(a).bfloat16() for a in _inputs(3, 1, 1, 16))
+    with pytest.raises(ValueError, match="f32"):
+        flash_attention_relkey_plain(q, k, v, None, None, tf32=True)
+    with pytest.raises(ValueError, match="f32"):
+        noncausal_attention_plain(q, k, v, tf32=True)

@@ -406,6 +406,159 @@ def test_semantic_m_encoder_runs_the_kernel(dev):
     assert (ids == ref).mean() >= 0.99
 
 
+# --- K4 and K5 f32 in one TF32 pass (precision "high" and "default") ---------
+
+# The one-pass kernel against its TF32 twin (the plain version's tf32=True),
+# which rounds at the kernel's points: they differ by f32 sums in another
+# order, and where a p lands on the other side of a rounding boundary after
+# an f32-level difference in its score, which moves an output by at most
+# 2^-10 p |v| / l.
+ONEPASS_SHARE = 2**-12
+
+
+def _assert_onepass_close(out, twin):
+    assert out.shape == twin.shape and out.dtype == twin.dtype == torch.float32
+    diff = (out - twin).abs().max().item()
+    bound = ONEPASS_SHARE * twin.abs().max().item()
+    assert diff <= bound, (diff, bound)
+
+
+def _launches(op):
+    return op.launches, op.launches_1pass
+
+
+@pytest.mark.parametrize("has_mask", [True, False], ids=["mask", "nomask"])
+@pytest.mark.parametrize("has_rel", [True, False], ids=["rel", "norel"])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129, 500, 600, 1499, 1500])
+def test_flash_attention_onepass_matches_twin(dev, T, has_rel, has_mask):
+    """Every length class of the 3-pass test; "high" (lowered to "default")
+    on odd T, "default" on even: one launch of the one-pass kernel, counted
+    apart from the 3-pass kernel's."""
+    q, k, v, E = _attn_inputs(dev, 2, 3, T, seed=T)
+    E = E if has_rel else None
+    mask = None
+    if has_mask:
+        mask = torch.ones((2, T), device=dev)
+        mask[1, T // 2 + 1:] = 0.0
+    before = _launches(flash_attention_relkey)
+    out = flash_attention_relkey(q, k, v, E, mask, precision="high" if T % 2 else "default")
+    torch.cuda.synchronize()
+    assert _launches(flash_attention_relkey) == (before[0], before[1] + 1)
+    _assert_onepass_close(out, flash_attention_relkey_plain(q, k, v, E, mask, tf32=True))
+
+
+@pytest.mark.parametrize("left,right", [(3, 0), (0, 5), (64, 8), (100, 100)])
+def test_flash_attention_onepass_band_edges(dev, left, right):
+    """The 3-pass band test's widths in one pass: one batch row fully
+    masked, the other cut short."""
+    q, k, v, _ = _attn_inputs(dev, 2, 2, 300, seed=left + 7 * right)
+    E = torch.from_numpy((np.random.default_rng(right).standard_normal(
+        (left + right + 1, 64)) * 0.05).astype(np.float32)).to(dev)
+    mask = torch.ones((2, 300), device=dev)
+    mask[0] = 0.0
+    mask[1, 211:] = 0.0
+    out = flash_attention_relkey(q, k, v, E, mask, left=left, right=right, precision="default")
+    torch.cuda.synchronize()
+    twin = flash_attention_relkey_plain(q, k, v, E, mask, left, right, tf32=True)
+    assert torch.isfinite(out).all()
+    _assert_onepass_close(out, twin)
+
+
+def test_flash_attention_onepass_all_masked_row(dev):
+    q, k, v, E = _attn_inputs(dev, 2, 2, 200, seed=5)
+    mask = torch.ones((2, 200), device=dev)
+    mask[0] = 0.0
+    out = flash_attention_relkey(q, k, v, E, mask, precision="default")
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    _assert_onepass_close(out, flash_attention_relkey_plain(q, k, v, E, mask, tf32=True))
+
+
+@pytest.mark.parametrize("B,T", [(1, 1024), (8, 1024), (32, 512), (2, 1), (2, 63), (2, 77),
+                                 (2, 1000), (2, 1280), (2, 1500)])
+def test_flash_attention_plain_onepass_matches_twin(dev, B, T):
+    from audiotoken_tpu_torch.ops.flash_attention import (
+        flash_attention_plain,
+        noncausal_attention_plain,
+    )
+
+    q = _randn(dev, (B, 16, T, 64), torch.float32, 1, 0.125)
+    k = _randn(dev, (B, 16, T, 64), torch.float32, 2)
+    v = _randn(dev, (B, 16, T, 64), torch.float32, 3)
+    before, before_k4 = _launches(flash_attention_plain), _launches(flash_attention_relkey)
+    out = flash_attention_plain(q, k, v, precision="default")
+    torch.cuda.synchronize()
+    assert _launches(flash_attention_plain) == (before[0], before[1] + 1)
+    assert _launches(flash_attention_relkey) == before_k4
+    _assert_onepass_close(out, noncausal_attention_plain(q, k, v, tf32=True))
+
+
+@pytest.mark.parametrize("form", ["rel_mask", "mask", "plain"])
+def test_bf16_attention_ignores_precision(dev, form):
+    """bf16 inputs launch the bf16 kernels and give the same bits at every
+    precision: the JAX body's bf16 dots are one pass at any precision."""
+    from audiotoken_tpu_torch.ops.flash_attention import (
+        flash_attention_plain,
+        flash_attention_relkey_bf16,
+    )
+
+    T = 1024 if form == "plain" else 300
+    q, k, v, E = (x.to(torch.bfloat16) for x in _attn_inputs(dev, 2, 3, T, seed=9))
+    mask = torch.ones((2, T), device=dev)
+    mask[1, 211:] = 0.0
+    op = flash_attention_plain if form == "plain" else flash_attention_relkey_bf16
+    outs = []
+    for precision in ("highest", "high", "default"):
+        counts = (_launches(flash_attention_relkey), _launches(flash_attention_plain)[1],
+                  op.launches)
+        if form == "plain":
+            outs.append(flash_attention_plain(q * 0.125, k, v, precision=precision))
+        else:
+            outs.append(flash_attention_relkey(q, k, v, E.float() if form == "rel_mask" else None,
+                                               mask, precision=precision))
+        torch.cuda.synchronize()
+        assert (_launches(flash_attention_relkey), _launches(flash_attention_plain)[1],
+                op.launches) == counts[:2] + (counts[2] + 1,)
+    assert outs[0].dtype == torch.bfloat16
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+
+
+#: sha256 of the 3-pass kernels' outputs on :func:`_fixed_attention`'s
+#: inputs, as the kernels before their one-pass form gave them on an H100
+#: (PyTorch 2.11.0+cu128, the toolkit's nvcc): K4 with the rel term and a
+#: mask, K4 with the mask alone, K5 f32
+THREE_PASS_SHA256 = {
+    "rel_mask": "c879f3f085e5d0ed02779ded35ab0893a2a906ff55b05871fb92f4db2f2e0e7e",
+    "mask": "2ec53e9ff63596b996db2fffa6d4efdd79ed21c932d9c6c3e5f36be3083f51d1",
+    "plain": "d8e21e6eb2647cb8cceb51cb102253db4096fb486357568063284e81fdaaf5ab",
+}
+
+
+def _fixed_attention(dev):
+    """The 3-pass kernels at their default precision on fixed inputs."""
+    from audiotoken_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    q, k, v, E = _attn_inputs(dev, 2, 3, 300, seed=1234)
+    mask = torch.ones((2, 300), device=dev)
+    mask[1, 211:] = 0.0
+    q5, k5, v5 = (_randn(dev, (2, 4, 300, 64), torch.float32, s, c)
+                  for s, c in ((11, 0.125), (12, 1.0), (13, 1.0)))
+    return {"rel_mask": flash_attention_relkey(q, k, v, E, mask),
+            "mask": flash_attention_relkey(q, k, v, None, mask),
+            "plain": flash_attention_plain(q5, k5, v5)}
+
+
+def test_three_pass_bits_unchanged(dev):
+    """The 3-pass instantiations are the kernels they were: the same bits
+    as before the one-pass form was added, on fixed inputs."""
+    import hashlib
+
+    got = {name: hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+           for name, out in _fixed_attention(dev).items()}
+    assert got == THREE_PASS_SHA256
+
+
 # --- semantic decode: K5, K6, K7 --------------------------------------------
 
 # bf16: kernel and plain version both compute in f32 and round at the same

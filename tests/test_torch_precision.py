@@ -15,6 +15,9 @@ the CPU.
     ``DEFAULT``: the port's error is at most a quarter of JAX's own
     bf16-vs-f32 gap on the same input, a bound that rounding the input alone
     does not meet;
+  * the attention kernels' ``precision``, passed by each caller: the
+    conformer's ``attn_kernel`` stage, HuBERT's policy, Bark-fine's fine
+    policy, each the name of the JAX ``Precision`` the JAX caller passes;
   * ``buckets``: a custom grid pads as the JAX encoder's does, ids equal;
   * the refusals: ``mixed`` on acoustic and semantic_s, ``--precision
     mixed`` in the CLI before any weights load, an unknown stage.
@@ -38,12 +41,20 @@ from audiotoken_tpu.encoders import AcousticEncoder as JaxAcousticEncoder
 from audiotoken_tpu.encoders import HubertEncoder as JaxHubertEncoder
 from audiotoken_tpu.encoders import Wav2VecBertEncoder as JaxWav2VecBertEncoder
 from audiotoken_tpu.runtime import precision as jax_precision
+from audiotoken_tpu_torch import Wav2VecBertDecoder
 from audiotoken_tpu_torch import api as port_api
 from audiotoken_tpu_torch import cli
+from audiotoken_tpu_torch import decoders as port_decoders
 from audiotoken_tpu_torch import encoders as port_encoders
+from audiotoken_tpu_torch import weights as port_weights
 from audiotoken_tpu_torch.configs import HubertEncoderConfig, Wav2VecBertConfig
+from audiotoken_tpu_torch.nn import bark_fine as port_bark_nn
+from audiotoken_tpu_torch.nn import conformer as port_conformer_nn
+from audiotoken_tpu_torch.nn import hubert as port_hubert_nn
+from audiotoken_tpu_torch.nn.bark_fine import BarkFineConfig
 from audiotoken_tpu_torch.encoders import AcousticEncoder, HubertEncoder, Wav2VecBertEncoder
 from audiotoken_tpu_torch.nn.conformer import W2VBertConfig, W2VBertFeatures, init_w2vbert_params
+from audiotoken_tpu_torch.nn.gpt import GPTConfig
 from audiotoken_tpu_torch.nn.hubert import HubertConfig, HubertFeatures, init_hubert_params
 from audiotoken_tpu_torch.runtime import precision as port_precision
 from audiotoken_tpu_torch.weights import hubert_from_numpy, w2vbert_from_numpy
@@ -217,6 +228,77 @@ def test_stage_overrides_win(narrow):
     enc.set_precision("bfloat16")
     assert enc.policy.compute_dtype == torch.bfloat16
     assert all(enc.stage_prec.allow_tf32(s) for s in enc.stage_prec.STAGES)
+
+
+# --- the attention kernels' precision, passed by their callers -----------------
+
+
+def _record(monkeypatch, module, name):
+    """``module.name`` (K4 or K5, as a caller imported it) replaced by a
+    recorder of the ``precision`` each call passes, which must be a
+    keyword; -> the list it fills."""
+    seen, real = [], getattr(module, name)
+
+    def record(*args, precision, **kw):
+        seen.append(precision)
+        return real(*args, precision=precision, **kw)
+
+    monkeypatch.setattr(module, name, record)
+    return seen
+
+
+@pytest.mark.parametrize(
+    "label,precision,overrides",
+    MODES + [("attn_kernel_default", "highest", {"attn_kernel": "default"})],
+    ids=[m[0] for m in MODES] + ["attn_kernel_default"])
+def test_conformer_passes_attn_kernel(narrow, speech, monkeypatch, label, precision, overrides):
+    """K4 gets the ``attn_kernel`` stage's member in every block, as the
+    JAX conformer passes ``P("attn_kernel")``: "highest" under ``highest``
+    and ``mixed``, "default" under ``bfloat16`` and as an override."""
+    seen = _record(monkeypatch, port_conformer_nn, "flash_attention_relkey")
+    port_enc = narrow["semantic_m"][0](precision=precision, stage_overrides=overrides)
+    port_enc(speech[0][:1])
+    base, ov = jax_precision.resolve_mixed(
+        precision, overrides, port_precision.W2VBERT_MIXED_OVERRIDES)
+    jax_map = jax_precision.StagePrecision(jax_precision.get_policy(base).matmul_precision, ov)
+    assert seen == [jax_map("attn_kernel").name.lower()] * 2
+
+
+@pytest.mark.parametrize("policy", ["highest", "high", "default", "bfloat16"])
+def test_hubert_passes_its_policy(narrow, speech, monkeypatch, policy):
+    """K4 gets the policy's ``matmul_precision`` in every layer, as the JAX
+    HuBERT passes its policy's precision; the "xla" route does not reach
+    K4."""
+    seen = _record(monkeypatch, port_hubert_nn, "flash_attention_relkey")
+    x = HubertEncoder.host_transform(speech[0][:1])
+    narrow["semantic_s"][0](precision=policy)(x)
+    assert seen == [jax_precision.get_policy(policy).matmul_precision.name.lower()] * 2
+    narrow["semantic_s"][0](precision=policy, attn_impl="xla")(x)
+    assert len(seen) == 2
+
+
+@pytest.mark.parametrize("fine_precision", ["default", "highest"])
+def test_bark_fine_passes_the_fine_precision(monkeypatch, fine_precision):
+    """The decoder's ``fine_precision`` reaches K5 in every layer of every
+    codebook pass, in f32, as the JAX decoder hands the fine policy's
+    precision to its generator. Tiny GPT and Bark-fine, no acoustic
+    decoder."""
+    bark_cfg = BarkFineConfig(block_size=64, n_layer=2, n_head=2, n_embd=32, max_history=32)
+    real_gpt, real_bark = port_weights.get_semantic_gpt_params, port_weights.get_bark_fine_params
+    monkeypatch.setattr(port_weights, "get_semantic_gpt_params", lambda w, s, key, vs: real_gpt(
+        "random", 0, key, vs, config=GPTConfig(block_size=64, vocab_size=vs, n_layer=1,
+                                               n_head=2, n_embd=32)))
+    monkeypatch.setattr(port_weights, "get_bark_fine_params",
+                        lambda w, s: real_bark("random", 1, config=bark_cfg))
+    monkeypatch.setattr(port_decoders, "AcousticDecoder", lambda **kw: None)
+    seen = _record(monkeypatch, port_bark_nn, "flash_attention_plain")
+    dec = Wav2VecBertDecoder(weights="random", device="cpu", fine_dtype="float32",
+                             fine_precision=fine_precision)
+    coarse = np.random.default_rng(0).integers(0, 1024, (1, 2, 40))
+    fine = dec.bark.generate_fine_batch(coarse, temperature=None)
+    assert fine.shape == (1, 8, 40)
+    want = jax_precision.get_policy(fine_precision).matmul_precision.name.lower()
+    assert seen == [want] * (bark_cfg.n_layer * (bark_cfg.n_codes_total - 2))
 
 
 # --- the encoders against the JAX package -------------------------------------
