@@ -65,19 +65,9 @@
 //     plain version's softmax), a row's maximum combined across its quad with
 //     shuffles; the row sums are per thread until the end.
 //
-// The one-pass form (PASSES = 1) is the kernel at JAX's Precision.DEFAULT
-// (and HIGH, which the TPU kernel lowers to DEFAULT): every product inside
-// it takes its operands rounded once to TF32. q k^T and p v are one
-// mma.sync per product, on tf32(x) alone, with no lo parts and no lo
-// registers; q E^T stays on f32 FMAs, over q and E rounded to TF32, so that
-// its products are exact and only its sums round. p is rounded as the
-// kernel holds it, against the running maximum of the key tiles so far.
-// One pass at 495 TFLOP/s bounds it at a third of the 3-pass time. Its
-// launch bounds ask for two blocks an SM: 128 registers a thread (32 bytes
-// of spill) in place of the 168 it takes alone, which measured 15 % faster
-// at the conformer's and HuBERT's shapes on the H100 (the shared memory of
-// two blocks fits with the rel term's pos tile too). The 3-pass
-// instantiations are the code above, unchanged.
+// The one-pass form, at JAX's Precision.DEFAULT (and HIGH, which the TPU
+// kernel lowers to DEFAULT), is a kernel of its own for Hopper:
+// csrc/flash_attention_tf32.cu.
 
 #include <cfloat>
 #include <cstdint>
@@ -141,19 +131,10 @@ __device__ __forceinline__ uint32_t tf32(float x) {
   return r;
 }
 
-// x = hi + lo in 3 passes; hi alone (lo is not computed) in one
-template <int PASSES>
+// x = hi + lo
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32(x);
-  if constexpr (PASSES == 3) lo = tf32(x - __uint_as_float(hi));
-}
-
-// the value an f32 FMA of q E^T takes: x itself in 3 passes; in one, x
-// rounded to TF32 (to nearest, ties away from zero, as cvt.rna for a finite x)
-template <int PASSES>
-__device__ __forceinline__ float fma_operand(float x) {
-  if constexpr (PASSES == 1) return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
-  return x;
+  lo = tf32(x - __uint_as_float(hi));
 }
 
 // d += a b for one m16n8k8 tile: TF32 a (16 x 8) and b (8 x 8), f32 d
@@ -167,9 +148,8 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
 
 // PRESCALED: q comes multiplied by dh^-0.5 already (K5's f32 path), and the
 // scores are not scaled again; else they are scaled by 0.125, exactly.
-// PASSES: 3 (3xTF32, f32-accurate) or 1 (one TF32 pass, two blocks an SM)
-template <bool PRESCALED, int PASSES>
-__global__ void __launch_bounds__(WARPS * 32, PASSES == 1 ? 2 : 1)
+template <bool PRESCALED>
+__global__ void __launch_bounds__(WARPS * 32, 1)
 flash_attention_relkey_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, const float* __restrict__ E,
                               const float* __restrict__ mask, float* __restrict__ out,
@@ -205,8 +185,7 @@ flash_attention_relkey_kernel(const float* __restrict__ q, const float* __restri
   cp_async_wait<0>();
   __syncthreads();
 
-  static_assert(PASSES == 1 || PASSES == 3, "3xTF32 or one TF32 pass");
-  for (int e = tid; e < BQ * P; e += NT) {  // pos: f32 FMAs, on TF32 operands in one pass
+  for (int e = tid; e < BQ * P; e += NT) {  // pos = q_tile E^T in f32 FMAs
     const int r = e % BQ, p = e / BQ;
     const float* ep = E + (size_t)p * DH;
     const float4* qr = reinterpret_cast<const float4*>(qs + r * LDQ);
@@ -214,30 +193,30 @@ flash_attention_relkey_kernel(const float* __restrict__ q, const float* __restri
 #pragma unroll 4
     for (int d4 = 0; d4 < DH / 4; ++d4) {
       const float4 a = qr[d4];
-      acc = fmaf(fma_operand<PASSES>(a.x), fma_operand<PASSES>(__ldg(ep + 4 * d4)), acc);
-      acc = fmaf(fma_operand<PASSES>(a.y), fma_operand<PASSES>(__ldg(ep + 4 * d4 + 1)), acc);
-      acc = fmaf(fma_operand<PASSES>(a.z), fma_operand<PASSES>(__ldg(ep + 4 * d4 + 2)), acc);
-      acc = fmaf(fma_operand<PASSES>(a.w), fma_operand<PASSES>(__ldg(ep + 4 * d4 + 3)), acc);
+      acc = fmaf(a.x, __ldg(ep + 4 * d4), acc);
+      acc = fmaf(a.y, __ldg(ep + 4 * d4 + 1), acc);
+      acc = fmaf(a.z, __ldg(ep + 4 * d4 + 2), acc);
+      acc = fmaf(a.w, __ldg(ep + 4 * d4 + 3), acc);
     }
     pos[r * pos_ld + p] = acc;
   }
 
   // Q as A fragments: k-step 2j + h takes dims 16j + 4t + 2h (slot t) and
-  // 16j + 4t + 2h + 1 (slot t + 4) of rows g and g + 8 (ql: 3 passes only)
+  // 16j + 4t + 2h + 1 (slot t + 4) of rows g and g + 8
   uint32_t qh[8][4], ql[8][4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const float4 x = *reinterpret_cast<const float4*>(qs + (warp * 16 + g) * LDQ + 16 * j + 4 * t);
     const float4 y =
         *reinterpret_cast<const float4*>(qs + (warp * 16 + g + 8) * LDQ + 16 * j + 4 * t);
-    split<PASSES>(x.x, qh[2 * j][0], ql[2 * j][0]);
-    split<PASSES>(y.x, qh[2 * j][1], ql[2 * j][1]);
-    split<PASSES>(x.y, qh[2 * j][2], ql[2 * j][2]);
-    split<PASSES>(y.y, qh[2 * j][3], ql[2 * j][3]);
-    split<PASSES>(x.z, qh[2 * j + 1][0], ql[2 * j + 1][0]);
-    split<PASSES>(y.z, qh[2 * j + 1][1], ql[2 * j + 1][1]);
-    split<PASSES>(x.w, qh[2 * j + 1][2], ql[2 * j + 1][2]);
-    split<PASSES>(y.w, qh[2 * j + 1][3], ql[2 * j + 1][3]);
+    split(x.x, qh[2 * j][0], ql[2 * j][0]);
+    split(y.x, qh[2 * j][1], ql[2 * j][1]);
+    split(x.y, qh[2 * j][2], ql[2 * j][2]);
+    split(y.y, qh[2 * j][3], ql[2 * j][3]);
+    split(x.z, qh[2 * j + 1][0], ql[2 * j + 1][0]);
+    split(y.z, qh[2 * j + 1][1], ql[2 * j + 1][1]);
+    split(x.w, qh[2 * j + 1][2], ql[2 * j + 1][2]);
+    split(y.w, qh[2 * j + 1][3], ql[2 * j + 1][3]);
   }
   __syncthreads();  // pos is written; every warp has read Q out of buffer 1
 
@@ -288,15 +267,13 @@ flash_attention_relkey_kernel(const float* __restrict__ q, const float* __restri
 #pragma unroll
         for (int n = 0; n < 8; ++n) {
           const float2 b = *reinterpret_cast<const float2*>(ks + (n * 8 + g) * LDK + 16 * jj + 4 * t + 2 * h);
-          split<PASSES>(b.x, bh[n][0], bl[n][0]);
-          split<PASSES>(b.y, bh[n][1], bl[n][1]);
+          split(b.x, bh[n][0], bl[n][0]);
+          split(b.y, bh[n][1], bl[n][1]);
         }
-        if constexpr (PASSES == 3) {
 #pragma unroll
-          for (int n = 0; n < 8; ++n) mma_tf32(s[n], ql[2 * jj + h], bh[n][0], bh[n][1]);
+        for (int n = 0; n < 8; ++n) mma_tf32(s[n], ql[2 * jj + h], bh[n][0], bh[n][1]);
 #pragma unroll
-          for (int n = 0; n < 8; ++n) mma_tf32(s[n], qh[2 * jj + h], bl[n][0], bl[n][1]);
-        }
+        for (int n = 0; n < 8; ++n) mma_tf32(s[n], qh[2 * jj + h], bl[n][0], bl[n][1]);
 #pragma unroll
         for (int n = 0; n < 8; ++n) mma_tf32(s[n], qh[2 * jj + h], bh[n][0], bh[n][1]);
       }
@@ -368,23 +345,21 @@ flash_attention_relkey_kernel(const float* __restrict__ q, const float* __restri
       l[0] += p0 + p1;
       l[1] += p2 + p3;
       uint32_t ph[4], pl[4];
-      split<PASSES>(p0, ph[0], pl[0]);
-      split<PASSES>(p2, ph[1], pl[1]);
-      split<PASSES>(p1, ph[2], pl[2]);
-      split<PASSES>(p3, ph[3], pl[3]);
+      split(p0, ph[0], pl[0]);
+      split(p2, ph[1], pl[1]);
+      split(p1, ph[2], pl[2]);
+      split(p3, ph[3], pl[3]);
       const float* v0 = vs + (n * 8 + 2 * t) * LDV + g;
       uint32_t vh[8][2], vl[8][2];
 #pragma unroll
       for (int dd = 0; dd < 8; ++dd) {
-        split<PASSES>(v0[dd * 8], vh[dd][0], vl[dd][0]);
-        split<PASSES>(v0[LDV + dd * 8], vh[dd][1], vl[dd][1]);
+        split(v0[dd * 8], vh[dd][0], vl[dd][0]);
+        split(v0[LDV + dd * 8], vh[dd][1], vl[dd][1]);
       }
-      if constexpr (PASSES == 3) {
 #pragma unroll
-        for (int dd = 0; dd < 8; ++dd) mma_tf32(o[dd], pl, vh[dd][0], vh[dd][1]);
+      for (int dd = 0; dd < 8; ++dd) mma_tf32(o[dd], pl, vh[dd][0], vh[dd][1]);
 #pragma unroll
-        for (int dd = 0; dd < 8; ++dd) mma_tf32(o[dd], ph, vl[dd][0], vl[dd][1]);
-      }
+      for (int dd = 0; dd < 8; ++dd) mma_tf32(o[dd], ph, vl[dd][0], vl[dd][1]);
 #pragma unroll
       for (int dd = 0; dd < 8; ++dd) mma_tf32(o[dd], ph, vh[dd][0], vh[dd][1]);
     }
@@ -407,16 +382,16 @@ flash_attention_relkey_kernel(const float* __restrict__ q, const float* __restri
   }
 }
 
-template <bool PRESCALED, int PASSES>
+template <bool PRESCALED>
 int launch(const float* q, const float* k, const float* v, const float* E, const float* mask,
            float* out, int BH, int H, int T, int P, int left, void* stream) {
   const int pos_ld = P > 0 ? (P | 1) : 0;  // odd: the pos stores do not conflict
   const size_t smem = smem_bytes(pos_ld);
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_relkey_kernel<PRESCALED, PASSES>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_relkey_kernel<PRESCALED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T + BQ - 1) / BQ, BH);
-  flash_attention_relkey_kernel<PRESCALED, PASSES>
+  flash_attention_relkey_kernel<PRESCALED>
       <<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(q, k, v, E, mask, out, H, T, P,
                                                               left, pos_ld);
   return static_cast<int>(cudaGetLastError());
@@ -431,15 +406,7 @@ extern "C" int flash_attention_relkey_f32(const float* q, const float* k, const 
                                           const float* E, const float* mask, float* out,
                                           int BH, int H, int T, int P, int left,
                                           void* stream) {
-  return launch<false, 3>(q, k, v, E, mask, out, BH, H, T, P, left, stream);
-}
-
-// The same in one TF32 pass (JAX's Precision.DEFAULT and HIGH).
-extern "C" int flash_attention_relkey_f32_1pass(const float* q, const float* k, const float* v,
-                                                const float* E, const float* mask, float* out,
-                                                int BH, int H, int T, int P, int left,
-                                                void* stream) {
-  return launch<false, 1>(q, k, v, E, mask, out, BH, H, T, P, left, stream);
+  return launch<false>(q, k, v, E, mask, out, BH, H, T, P, left, stream);
 }
 
 // K5's f32 path (csrc/flash_attention_bf16.cu has its bf16 path): the same
@@ -447,11 +414,5 @@ extern "C" int flash_attention_relkey_f32_1pass(const float* q, const float* k, 
 // q, k, v, out [BH, T, 64] f32.
 extern "C" int flash_attention_plain_f32(const float* q, const float* k, const float* v,
                                          float* out, int BH, int T, void* stream) {
-  return launch<true, 3>(q, k, v, nullptr, nullptr, out, BH, 1, T, 0, 0, stream);
-}
-
-// K5's f32 path in one TF32 pass.
-extern "C" int flash_attention_plain_f32_1pass(const float* q, const float* k, const float* v,
-                                               float* out, int BH, int T, void* stream) {
-  return launch<true, 1>(q, k, v, nullptr, nullptr, out, BH, 1, T, 0, 0, stream);
+  return launch<true>(q, k, v, nullptr, nullptr, out, BH, 1, T, 0, 0, stream);
 }

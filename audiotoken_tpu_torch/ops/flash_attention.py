@@ -29,11 +29,13 @@ without its terms and without scaling the scores again
 
 Both take the JAX kernel's ``precision``, by the port's names (the keys of
 ``runtime/precision.py:TF32``). On f32 CUDA tensors ``"highest"`` launches
-the 3xTF32 kernel and ``"default"`` its one-pass form, every product on
+the 3xTF32 kernel and ``"default"`` the one-pass kernel, every product on
 operands rounded once to TF32 (``flash_attention_*_f32_1pass``, counted in
-``launches_1pass``); ``"high"`` is lowered to ``"default"``, as the JAX
-kernel lowers ``HIGH``. bf16 inputs ignore it: the JAX body's bf16 dots are
-one pass at any precision. On the CPU every precision runs the plain
+``launches_1pass``: ``csrc/flash_attention_tf32.cu``, wgmma with producer
+warpgroups that round the bulk-copied K and V tiles once a block);
+``"high"`` is lowered to ``"default"``, as the JAX kernel lowers ``HIGH``.
+bf16 inputs ignore it: the JAX body's bf16 dots are one pass at any
+precision. On the CPU every precision runs the plain
 version in f32, which is what the JAX package computes there. The plain
 versions' ``tf32=True`` is the one-pass kernel's twin, for the card's tests.
 """
@@ -53,8 +55,8 @@ KERNEL_DH = 64
 #: the JAX package's key tile: bf16 inputs with neither term and ``T`` a
 #: multiple of it take K5 (``audiotoken_tpu/ops/flash_attention.py:383``)
 K_TILE = 256
-#: keys a tile of the f32 kernel (``BK`` in csrc/flash_attention.cu): its
-#: one-pass form rounds p against the running maximum over such tiles
+#: keys a tile of the one-pass kernel (``BK`` in csrc/flash_attention_tf32.cu):
+#: it rounds p against the running maximum over such tiles
 ONEPASS_KEY_TILE = 64
 
 
@@ -260,8 +262,9 @@ def flash_attention_plain(q, k, v, precision: str = "highest"):
     """K5: the function of :func:`noncausal_attention_plain` (non-causal,
     no bias, no mask, q pre-scaled). Launches the bf16 kernel of
     ``csrc/flash_attention_bf16.cu`` (at any precision) or, in f32, K4's
-    kernel of ``csrc/flash_attention.cu`` (3xTF32 at ``"highest"``, one
-    TF32 pass at ``"high"`` and ``"default"``) for CUDA tensors
+    kernels (3xTF32 at ``"highest"``, ``csrc/flash_attention.cu``; one
+    TF32 pass at ``"high"`` and ``"default"``,
+    ``csrc/flash_attention_tf32.cu``) for CUDA tensors
     (contiguous, dh = 64) and runs the plain version in f32 for CPU tensors.
     An unknown ``precision`` raises ValueError.
 

@@ -86,7 +86,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      ten times the gate away; the form with neither term at T = 1024 must
      launch K5 and not K4;
   3g. the one-pass form of K4 and K5's f32 path (``precision="default"``
-     or ``"high"``: ``csrc/flash_attention.cu`` with one TF32 pass) at
+     or ``"high"``: ``csrc/flash_attention_tf32.cu``, wgmma in one TF32
+     pass; its registers and spill from the ``-Xptxas -v`` log and its
+     dynamic shared memory printed first) at
      [8, 16, 1500, 64] with the rel term and a mask, [8, 12, 1499, 64]
      with the mask alone and [8, 16, 1024, 64] (K5): one launch each
      through the public op, counted apart from the 3-pass kernel's; each
@@ -1542,9 +1544,41 @@ def rel_term_misses(q, k, v, E, mask, left=64, right=8):
             .abs().max().item() for name, (e, lo, hi) in wrong.items()}
 
 
+#: the one-pass kernel's instantiations (csrc/flash_attention_tf32.cu) by
+#: their template arguments (PRESCALED, REL)
+ONEPASS_FORMS = {("1", "0"): "K5 f32", ("0", "0"): "mask only",
+                 ("0", "1"): "rel, pos by wgmma (P <= 80)", ("0", "2"): "rel, P > 80"}
+
+
+def onepass_smem_bytes(P):
+    """Dynamic shared memory of a block of the one-pass kernel, as its
+    launcher sizes it (csrc/flash_attention_tf32.cu: Q 32 KB, rounded K and
+    V^T 2 x 32 KB, raw tiles 2 x 32 KB, the key bias 4 x 256 B, 13
+    mbarriers; with 0 < P <= 80, E 20 KB from the next KB and the pos tile
+    [128, P | 1] f32; 1 KB for the base's alignment)."""
+    bars = 5 * 32768 + 4 * 256 + 13 * 8
+    if not 0 < P <= 80:
+        return 1024 + bars
+    return 1024 + -(-bars // 1024) * 1024 + 80 * 256 + 128 * (P | 1) * 4
+
+
+def onepass_build_lines():
+    """``ptxas -v``'s lines for each instantiation of the one-pass kernel:
+    registers, barriers, stack and spill."""
+    log, out = _build.build_log().splitlines(), []
+    for i, line in enumerate(log):
+        if "Compiling entry" in line and "attention_tf32_kernel" in line:
+            key = line.split("attention_tf32_kernelILb", 1)[1]
+            form = ONEPASS_FORMS.get((key[0], key[key.index("ELi") + 3]), key[:8])
+            props = [x.strip().replace("ptxas info    : ", "") for x in log[i + 1:i + 4]
+                     if "registers" in x or "spill" in x]
+            out.append(f"{form}: " + "; ".join(props))
+    return out
+
+
 def phase3g_flash_onepass(dev):
-    """The one-pass form of K4 and K5's f32 path (``csrc/flash_attention.cu``
-    with PASSES = 1, what ``precision="default"`` and ``"high"`` launch): K4
+    """The one-pass form of K4 and K5's f32 path (``csrc/flash_attention_tf32.cu``,
+    what ``precision="default"`` and ``"high"`` launch): K4
     with the rel term and a mask at [8, 16, 1500, 64], K4 with the mask
     alone at [8, 12, 1499, 64], K5 f32 at [8, 16, 1024, 64]. Each is
     launched once through its public op at "default" (the one-pass count
@@ -1554,6 +1588,11 @@ def phase3g_flash_onepass(dev):
     f32 with the TF32 switches on (the mask as a boolean ``attn_mask``),
     with the backend SDPA took; its bound in one TF32 pass. Returns the
     kernels line's entries."""
+    for line in onepass_build_lines():
+        say(f"[3g] one-pass kernel, {line}")
+    say(f"[3g] one-pass kernel, dynamic shared memory a block: {onepass_smem_bytes(73)} bytes "
+        f"with the rel term (P = 73), {onepass_smem_bytes(0)} without; one block an SM, "
+        f"setmaxnreg 200 registers a consumer thread and 56 a producer thread")
     rng = np.random.default_rng(7)
 
     def t(shape, scale):
@@ -2858,13 +2897,13 @@ def main():
         # the one-pass forms (precision "high", "default", "bfloat16"): K4 on
         # 5f's semantic_m and semantic_s, K5 f32 on 5c's fine stage at "default"
         ("flash_attention_relkey_1pass", "flash_attention_relkey_1pass",
-         "audiotoken_tpu_torch/csrc/flash_attention.cu",
+         "audiotoken_tpu_torch/csrc/flash_attention_tf32.cu",
          "audiotoken_tpu/ops/flash_attention.py:519"),
         ("flash_attention_norel_1pass", "flash_attention_norel_1pass",
-         "audiotoken_tpu_torch/csrc/flash_attention.cu",
+         "audiotoken_tpu_torch/csrc/flash_attention_tf32.cu",
          "audiotoken_tpu/ops/flash_attention.py:519"),
         ("flash_attention_plain_f32_1pass", "flash_attention_plain_f32_1pass",
-         "audiotoken_tpu_torch/csrc/flash_attention.cu",
+         "audiotoken_tpu_torch/csrc/flash_attention_tf32.cu",
          "audiotoken_tpu/ops/flash_attention.py:287"),
     ]
     # the TPU script's ablations (:108), its one-pass kernel (:157), and for

@@ -326,27 +326,36 @@ def test_tf32_round_matches_the_bit_rule():
                                   tf32(r).view(np.uint32))
 
 
-def _onepass_loop(q, k, v, E, mask, scale):
+def _onepass_loop(q, k, v, E, mask, scale, log2=False):
     """The one-pass kernel's loop, transcribed in numpy: each product one
     TF32 pass (:func:`_split_product` with one term; q E^T the same, as the
-    kernel's FMAs over rounded operands), the online softmax over tiles of
-    ONEPASS_KEY_TILE keys, p rounded against the running maximum."""
+    kernel's products over rounded operands), the online softmax over tiles
+    of ONEPASS_KEY_TILE keys, p rounded against the running maximum. With
+    ``log2``, the softmax of csrc/flash_attention_tf32.cu: the scores scaled
+    by ``scale`` log2 e in one f32 multiply-add with the padding bias, which
+    is added unscaled, and p = 2^(x - m)."""
     T = q.shape[-2]
     s = _split_product(q, np.swapaxes(k, -1, -2), 1)
     if E is not None:
         t = np.arange(T)
         idx = np.clip(t[None, :] - t[:, None] + LEFT, 0, LEFT + RIGHT)
         s = s + _split_product(q, E.T, 1)[:, :, t[:, None], idx]
-    s = s * np.float32(scale)
+    bias = 0.0
     if mask is not None:
-        s = s + ((1.0 - mask) * np.finfo(np.float32).min)[:, None, None, :].astype(np.float32)
+        bias = ((1.0 - mask) * np.finfo(np.float32).min)[:, None, None, :].astype(np.float32)
+    if log2:  # one rounding: the f64 product and sum are exact before it
+        c = np.float32(scale * np.log2(np.e))
+        s = (s.astype(np.float64) * c + bias).astype(np.float32)
+    else:
+        s = s * np.float32(scale) + bias
+    exp = np.exp2 if log2 else np.exp
     m = np.full(s.shape[:-1] + (1,), -np.inf, np.float32)
     l = np.zeros_like(m)
     acc = np.zeros(s.shape[:-1] + (DH,), np.float32)
     for j in range(0, T, ONEPASS_KEY_TILE):
         tile = s[..., j:j + ONEPASS_KEY_TILE]
         m_new = np.maximum(m, tile.max(-1, keepdims=True))
-        alpha, p = np.exp(m - m_new), np.exp(tile - m_new)
+        alpha, p = exp(m - m_new), exp(tile - m_new)
         l = l * alpha + p.sum(-1, keepdims=True)
         acc = acc * alpha + _split_product(p, v[:, :, j:j + ONEPASS_KEY_TILE], 1)
         m = m_new
@@ -354,7 +363,7 @@ def _onepass_loop(q, k, v, E, mask, scale):
 
 
 @pytest.mark.parametrize("form", ["rel_mask", "plain"])
-def test_onepass_twin(form):
+def test_onepass_twin(form, log2=False):
     """``tf32=True`` is the one-pass kernel's function: it agrees with the
     numpy transcription of the kernel's loop (products by
     :func:`_split_product` with one term) within 2^-13 of the output's
@@ -371,7 +380,7 @@ def test_onepass_twin(form):
         twin = noncausal_attention_plain(t(q), t(k), t(v), tf32=True).numpy()
         f32 = noncausal_attention_plain(t(q), t(k), t(v)).numpy()
         ref64 = noncausal_attention_plain(*(t(a.astype(np.float64)) for a in (q, k, v))).numpy()
-        loop = _onepass_loop(q, k, v, None, None, 1.0)
+        loop = _onepass_loop(q, k, v, None, None, 1.0, log2)
     else:
         mask = np.ones((1, 200), np.float32)
         mask[0, 150:] = 0.0
@@ -379,12 +388,20 @@ def test_onepass_twin(form):
                                             tf32=True).numpy()
         f32 = _plain(q, k, v, E, mask)
         ref64 = xla_reference(*(a.astype(np.float64) for a in (q, k, v, E)), mask)
-        loop = _onepass_loop(q, k, v, E, mask, 0.125)
+        loop = _onepass_loop(q, k, v, E, mask, 0.125, log2)
     scale = np.abs(ref64).max()
     assert twin.dtype == np.float32 and twin.shape == f32.shape
     assert np.abs(twin - loop).max() <= 2**-13 * scale, np.abs(twin - loop).max() / scale
     assert np.abs(twin - ref64).max() > 1e-5 * scale
     assert np.abs(f32 - ref64).max() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("form", ["rel_mask", "plain"])
+def test_onepass_twin_log2_softmax(form):
+    """The same with the loop's softmax in the log2 domain, as
+    csrc/flash_attention_tf32.cu takes it: the scores scaled by log2 e in
+    the multiply-add with the bias, p = 2^(x - m)."""
+    test_onepass_twin(form, log2=True)
 
 
 def test_twin_takes_f32_only():

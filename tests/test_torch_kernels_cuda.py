@@ -493,6 +493,84 @@ def test_flash_attention_plain_onepass_matches_twin(dev, B, T):
     _assert_onepass_close(out, noncausal_attention_plain(q, k, v, tf32=True))
 
 
+def _onepass_forms(form, E, mask):
+    """The one-pass kernel in ``form`` through its public op, and its TF32
+    twin; K5's q is taken pre-scaled."""
+    from audiotoken_tpu_torch.ops.flash_attention import (
+        flash_attention_plain,
+        noncausal_attention_plain,
+    )
+
+    if form == "plain":
+        return (lambda q, k, v: flash_attention_plain(q * 0.125, k, v, precision="default"),
+                lambda q, k, v: noncausal_attention_plain(q * 0.125, k, v, tf32=True))
+    E, mask = (E, mask) if form == "rel_mask" else (None, mask)
+    return (lambda q, k, v: flash_attention_relkey(q, k, v, E, mask, precision="default"),
+            lambda q, k, v: flash_attention_relkey_plain(q, k, v, E, mask, tf32=True))
+
+
+def _above_half_unit(dev, shape, seed, mean, scale):
+    """f32 values whose 13 low mantissa bits lie just above half a TF32 unit
+    (0x1001 to 0x10ff): rounding to nearest takes each up a unit, truncation
+    down, and the two differ by a whole unit."""
+    rng = np.random.default_rng(seed)
+    x = (mean + rng.standard_normal(shape) * scale).astype(np.float32)
+    bits = (x.view(np.uint32) & np.uint32(0xFFFFE000)) | rng.integers(
+        0x1001, 0x1100, shape, dtype=np.uint32)
+    return torch.from_numpy(bits.view(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("form", ["rel_mask", "mask", "plain"])
+def test_flash_attention_onepass_rounds_to_nearest(dev, form):
+    """Operands just above half a TF32 unit: the kernel rounds them to
+    nearest, as its twin does, within the gate; the twin of a kernel that
+    truncated them (the twin on the truncated inputs) lands outside it."""
+    B, H, T = 2, 3, 300
+    q = _above_half_unit(dev, (B, H, T, 64), 1, 0.0, 0.3)
+    k = _above_half_unit(dev, (B, H, T, 64), 2, 0.0, 0.3)
+    v = _above_half_unit(dev, (B, H, T, 64), 3, 0.5, 0.3)
+    E = _above_half_unit(dev, (73, 64), 4, 0.0, 0.05)
+    mask = torch.ones((B, T), device=dev)
+    mask[1, 211:] = 0.0
+    kernel, twin = _onepass_forms(form, E, mask)
+    out, ref = kernel(q, k, v), twin(q, k, v)
+    torch.cuda.synchronize()
+    _assert_onepass_close(out, ref)
+    cut = [(x.view(torch.int32) & -0x2000).view(torch.float32) for x in (q, k, v)]
+    if form == "rel_mask":
+        _, twin = _onepass_forms(form, (E.view(torch.int32) & -0x2000).view(torch.float32), mask)
+    truncated = twin(*cut)
+    assert (truncated - ref).abs().max().item() > ONEPASS_SHARE * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("place", ["nan_tail", "buffer_end"])
+@pytest.mark.parametrize("form", ["rel_mask", "mask", "plain"])
+def test_flash_attention_onepass_reads_nothing_past_its_tensors(dev, form, place):
+    """q, k and v as views of larger buffers filled with NaN: followed by the
+    NaN tail, or at the very end of the buffer with the NaN before them, at
+    a T that leaves a ragged last key tile (1500 = 23 x 64 + 28). Bulk copies
+    that read past the last head's end would bring NaN (or a fault) into the
+    output."""
+    B, H, T = 2, 3, 1500
+    q0, k0, v0, E = _attn_inputs(dev, B, H, T, seed=31)
+    mask = torch.ones((B, T), device=dev)
+    mask[1, 1111:] = 0.0
+    n = q0.numel()
+
+    def placed(x):
+        buf = torch.full((n + 4096,), float("nan"), device=dev)
+        view = (buf[:n] if place == "nan_tail" else buf[4096:]).view(x.shape)
+        view.copy_(x)
+        return view
+
+    q, k, v = placed(q0), placed(k0), placed(v0)
+    kernel, twin = _onepass_forms(form, E, mask)
+    out = kernel(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    _assert_onepass_close(out, twin(q0, k0, v0))
+
+
 @pytest.mark.parametrize("form", ["rel_mask", "mask", "plain"])
 def test_bf16_attention_ignores_precision(dev, form):
     """bf16 inputs launch the bf16 kernels and give the same bits at every
