@@ -1,45 +1,39 @@
-// K8: cost-attribution ablations of K5 (not valid attention).
+// K8 in f32: cost-attribution ablations of an attention (not valid
+// attention), on f32 FMAs.
 //
-// Replaces the two Pallas kernels of scripts/profile_attn_micro.py: the
-// ablation kernel (`ablation_kernel`, launched by `run_ablation`, the
-// pallas_call at :108) and the one-pass kernel (`onepass_kernel`, launched
-// by `run_onepass` at :157). They split the time of a non-causal attention
-// between its two dot products and its online softmax by taking parts of
-// the softmax out. Here they ablate K5's first design (64 query rows a
-// block, 256 threads, f32 FMAs on tiles converted to f32 in shared
-// memory), not the TPU
-// kernel's 256/512 tiles and head groups, which Hopper's shared memory does
-// not hold. The `full` mode is that design whole, valid attention: an
-// ablation's time is subtracted from full's, never from K5's bf16 kernel on
-// the tensor cores, which is another design.
+// Replaces the two Pallas kernels of scripts/profile_attn_micro.py for f32
+// inputs: the ablation kernel (`ablation_kernel`, launched by
+// `run_ablation`, the pallas_call at :108) and the one-pass kernel
+// (`onepass_kernel`, launched by `run_onepass` at :157). The TPU script and
+// the port's micro-profile run them in bf16, where K8 is K5's tensor-core
+// kernel with one part taken out (csrc/flash_attention_bf16.cu,
+// attn_ablation_bf16). This f32 form keeps K5's first design (64 query rows
+// a block, 256 threads, f32 FMAs on tiles in shared memory); its `full` mode
+// is that design whole.
 //
-// Modes, for q (pre-scaled), k, v [BH, T, 64] bf16 or f32, with
-// s = q . k in f32 and `round` the rounding to the element type:
+// Modes, for q (pre-scaled), k, v [BH, T, 64] f32, with s = q . k:
 //   noexp     per key tile: m' = max(m, rowmax(s)), alpha = exp(m - m'),
 //             p = s - m' (no exp), l = l * alpha + rowsum(p), and the
-//             accumulator is NOT rescaled by alpha; acc += round(p) v
-//   dotsonly  per key tile: p = round(s * 1e-6), l += 1; acc += p v
+//             accumulator is NOT rescaled by alpha; acc += p v
+//   dotsonly  per key tile: p = s * 1e-6, l += 1; acc += p v
 //   full      per key tile: the online softmax whole, m' as in noexp,
 //             p = exp(s - m'), l = l * alpha + rowsum(p), acc = acc * alpha
-//             + round(p) v: the function of K5 and of the Pallas
-//             `_kernel_plain` (audiotoken_tpu/ops/flash_attention.py:218)
+//             + p v: the function of K5 and of the Pallas `_kernel_plain`
+//             (audiotoken_tpu/ops/flash_attention.py:218)
 //   onepass   exact softmax over the whole key row in one pass (no m/l
 //             recurrence): the T scores of each query row sit in shared
-//             memory, then p = exp(s - max), l = sum(p), acc = round(p) v
-// and every mode writes round(acc / max(l, 1e-30)), as the Pallas bodies do.
+//             memory, then p = exp(s - max), l = sum(p), acc = p v
+// and every mode writes acc / max(l, 1e-30), as the Pallas bodies do.
 // noexp and dotsonly take a key tile of 64 or 128 (the result depends on
 // it), full a key tile of 64; onepass takes 16 or 32 query rows a block (the
 // result does not).
 //
 // What bounds it: the two dot products, 4 T^2 dh FLOPs per (batch, head),
-// 68.7 GFLOP at [16, 16, 1024, 64]; as f32 FMAs the f32 rate bounds it
-// (about 1 ms at 67 TFLOP/s), against 0.07 ms for bf16 tensor cores. The
-// modes share one design, so that full's time minus a mode's is the cost of
-// what the mode took out. onepass keeps a whole score row per query row in shared
-// memory (16 rows x 1024 keys x 4 B = 64 KB), and so reads each head's K and
-// V once per 16 or 32 rows, mostly from L2.
+// 68.7 GFLOP at [16, 16, 1024, 64], on the 67 TFLOP/s of f32 FMAs (about
+// 1 ms). onepass keeps a whole score row per query row in shared memory (16
+// rows x 1024 keys x 4 B = 64 KB), and so reads each head's K and V once
+// per 16 or 32 rows, mostly from L2.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -57,29 +51,9 @@ enum Mode { NOEXP = 0, DOTSONLY = 1, ONEPASS = 2, FULL_SOFTMAX = 3 };
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<unsigned*>(&a);
-  u.y = *reinterpret_cast<unsigned*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
-// x rounded to the element type, back in f32 (the Pallas `p.astype(v.dtype)`)
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
 }
 
 template <int TK>
@@ -165,7 +139,7 @@ attn_ablation_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i) {
       if (MODE == DOTSONLY) {
 #pragma unroll
-        for (int j = 0; j < KPT; ++j) s[i][j] = round_to(s[i][j] * 1e-6f, q);
+        for (int j = 0; j < KPT; ++j) s[i][j] *= 1e-6f;
         l[i] += 1.f;
       } else {  // NOEXP, FULL_SOFTMAX
         float mx = s[i][0];
@@ -181,7 +155,6 @@ attn_ablation_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
           // noexp: the identity in place of exp
           s[i][j] = MODE == FULL_SOFTMAX ? expf(s[i][j] - m_new) : s[i][j] - m_new;
           rs += s[i][j];
-          s[i][j] = round_to(s[i][j], q);
         }
 #pragma unroll
         for (int off = 8; off >= 1; off >>= 1) rs += __shfl_xor_sync(FULL, rs, off);
@@ -292,7 +265,7 @@ attn_onepass_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   // 2. exact softmax of each row: max, p = exp(s - max), l = sum(p) in f32,
-  //    p kept rounded to the element type for the second product
+  //    p kept for the second product
   {
     const int r = tid / NT, u = tid % NT;
     float* row = S + r * LDS;
@@ -311,8 +284,7 @@ attn_onepass_kernel(const T* __restrict__ q, const T* __restrict__ k,
       x.z = expf(x.z - mx);
       x.w = expf(x.w - mx);
       sum += (x.x + x.y) + (x.z + x.w);
-      store4(row + c, make_float4(round_to(x.x, q), round_to(x.y, q), round_to(x.z, q),
-                                  round_to(x.w, q)));
+      store4(row + c, x);
     }
 #pragma unroll
     for (int off = NT / 2; off >= 1; off >>= 1) sum += __shfl_xor_sync(FULL, sum, off);
@@ -400,14 +372,8 @@ int dispatch(const T* q, const T* k, const T* v, T* out, int BH, int T_len, int 
 
 }  // namespace
 
-// q (pre-scaled), k, v, out [BH, T, 64] contiguous, one element type.
+// q (pre-scaled), k, v, out [BH, T, 64] f32, contiguous.
 extern "C" int attn_ablation_f32(const float* q, const float* k, const float* v, float* out,
                                  int BH, int T, int mode, int tile, void* stream) {
-  return dispatch(q, k, v, out, BH, T, mode, tile, stream);
-}
-
-extern "C" int attn_ablation_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                                  const __nv_bfloat16* v, __nv_bfloat16* out, int BH, int T,
-                                  int mode, int tile, void* stream) {
   return dispatch(q, k, v, out, BH, T, mode, tile, stream);
 }

@@ -72,6 +72,27 @@
 //   * the epilogue divides by max(l, 1e-30) (K5: multiplies by its
 //     reciprocal), rounds to bf16 and stores; rows >= T are not written.
 // wgmma with TMA loads and warp specialisation is the next step.
+//
+// K8 in bf16 (attn_ablation_bf16) replaces the two Pallas kernels of
+// scripts/profile_attn_micro.py: `ablation_kernel` (`run_ablation`, the
+// pallas_call at :108) and `onepass_kernel` (`run_onepass`, :157). They
+// are K5's kernel with one part taken out, so that K5's time minus an
+// ablation's is what that part costs in K5 (not valid attention; their
+// function is ops/attn_ablation.py:attn_ablation_plain's):
+//   full      K5's own instantiation (MODE_FULL, 64 keys a step);
+//   noexp     p = s - m' in place of exp2, l = l alpha + rowsum(p), the
+//             accumulator not rescaled by alpha;
+//   dotsonly  both products, p = bf16(s 1e-6) and l gains 1 a tile: no
+//             softmax;
+//   onepass   an exact softmax over whole key rows from the same blocks
+//             (cp.async into padded rows, ldmatrix, mma.sync m16n8k16), in
+//             a kernel of its own (attn_onepass_bf16_kernel, below).
+// noexp and dotsonly also take 128 keys a recurrence step: S of both
+// 64-key halves is taken before m', 64 score registers a thread, so those
+// two instantiations run one block an SM and measure that change too.
+// What bounds them is K5's bound at [16, 16, 1024, 64]: 68.7 GFLOP on the
+// bf16 tensor cores, 0.0695 ms; onepass reads K and V once per 16 or 32
+// query rows, 4.3 or 2.1 GB from L2 at that shape.
 
 #include <cfloat>
 #include <cstdint>
@@ -141,11 +162,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // rows [r0, r0 + ROWS) of a [T, 64] bf16 matrix into a padded shared tile,
-// rows >= T as zeros
-template <int ROWS>
+// rows >= T as zeros, by a block of THREADS threads
+template <int ROWS, int THREADS = NT>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0, int T_len) {
 #pragma unroll
-  for (int c = threadIdx.x; c < ROWS * (DH / 8); c += NT) {
+  for (int c = threadIdx.x; c < ROWS * (DH / 8); c += THREADS) {
     const int r = c / (DH / 8), col = (c % (DH / 8)) * 8;
     const bool valid = r0 + r < T_len;
     cp_async16(smem_addr(dst + r * LDS + col), src + (size_t)(valid ? r0 + r : 0) * DH + col,
@@ -153,24 +174,35 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0, in
   }
 }
 
-// Q [BQ][LDS], K and V [2][BK][LDS] each (bf16); K4 adds kbias [2][BK] and
+// Q [BQ][LDS], K and V [2][KT][LDS] each (bf16); K4 adds kbias [2][BK] and
 // pos [BQ][pos_ld] (f32)
-constexpr size_t QKV_SMEM_BYTES = (size_t)(BQ + 4 * BK) * LDS * sizeof(bf16);
+template <int KT>
+constexpr size_t qkv_smem_bytes() {
+  return (size_t)(BQ + 4 * KT) * LDS * sizeof(bf16);
+}
+
+// The softmax step of each key tile (K8's modes; ops/attn_ablation.py numbers
+// them so): MODE_FULL is K5's and K4's, the others take a part of it out.
+constexpr int MODE_NOEXP = 0, MODE_DOTSONLY = 1, MODE_ONEPASS = 2, MODE_FULL = 3;
 
 // TERMS = false: K5 (q pre-scaled, no rel term, no mask; E, mask, H, P,
 // left and pos_ld unused). TERMS = true: K4, with the rel term when P > 0
-// and the padding bias when mask is not null.
-template <bool TERMS>
-__global__ void __launch_bounds__(NT, 2)
+// and the padding bias when mask is not null. MODE and KT (keys a
+// recurrence step) are MODE_FULL and BK for both; K8's ablations instantiate the
+// kernel without K4's terms at another MODE, and at KT = 128, whose 64
+// score registers a thread leave room for one block an SM.
+template <bool TERMS, int MODE, int KT>
+__global__ void __launch_bounds__(NT, KT == BK ? 2 : 1)
 attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const bf16* __restrict__ E,
                       const float* __restrict__ mask, bf16* __restrict__ out, int H, int T_len,
                       int P, int left, int pos_ld) {
+  static_assert(!TERMS || (MODE == MODE_FULL && KT == BK), "K4's terms take K5's softmax step");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sq = reinterpret_cast<bf16*>(smem);  // [BQ][LDS]
-  bf16* sk = sq + BQ * LDS;                  // [2][BK][LDS]
-  bf16* sv = sk + 2 * BK * LDS;              // [2][BK][LDS]
-  float* kbias = reinterpret_cast<float*>(sv + 2 * BK * LDS);  // [2][BK] (K4)
+  bf16* sk = sq + BQ * LDS;                  // [2][KT][LDS]
+  bf16* sv = sk + 2 * KT * LDS;              // [2][KT][LDS]
+  float* kbias = reinterpret_cast<float*>(sv + 2 * KT * LDS);  // [2][BK] (K4)
   float* pos = kbias + 2 * BK;                                  // [BQ][pos_ld] (K4)
 
   const int tid = threadIdx.x;
@@ -182,11 +214,11 @@ attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qw = q0 + warp * 16;  // the warp's first row
   const size_t base = (size_t)blockIdx.y * T_len * DH;
   const float* mrow = (TERMS && mask) ? mask + (size_t)(blockIdx.y / H) * T_len : nullptr;
-  const int ntiles = (T_len + BK - 1) / BK;
+  const int ntiles = (T_len + KT - 1) / KT;
 
   auto load_kv = [&](int j) {
-    load_tile<BK>(sk + (j & 1) * BK * LDS, k + base, j * BK, T_len);
-    load_tile<BK>(sv + (j & 1) * BK * LDS, v + base, j * BK, T_len);
+    load_tile<KT>(sk + (j & 1) * KT * LDS, k + base, j * KT, T_len);
+    load_tile<KT>(sv + (j & 1) * KT * LDS, v + base, j * KT, T_len);
     if constexpr (TERMS) {
       if (tid < BK) {
         const int kg = j * BK + tid;
@@ -243,7 +275,7 @@ attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
   for (int j = 0; j < ntiles; ++j) {
-    const int k0 = j * BK;
+    const int k0 = j * KT;
     if (j + 1 < ntiles) {  // the next tile's copy overlaps this tile's math
       load_kv(j + 1);
       cp_async_commit();
@@ -255,19 +287,19 @@ attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if constexpr (!TERMS) {
       if (j == 0) load_q_fragments();
     }
-    const bf16* kt = sk + (j & 1) * BK * LDS;
-    const bf16* vt = sv + (j & 1) * BK * LDS;
+    const bf16* kt = sk + (j & 1) * KT * LDS;
+    const bf16* vt = sv + (j & 1) * KT * LDS;
 
-    // S = Q K^T over the tile's 64 keys: n-tile n holds keys n*8 + 2t, + 1
-    float s[8][4];
+    // S = Q K^T over the tile's KT keys: n-tile n holds keys n*8 + 2t, + 1
+    float s[KT / 8][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < KT / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {  // two n-tiles of 8 keys
+      for (int np = 0; np < KT / 16; ++np) {  // two n-tiles of 8 keys
         uint32_t b[4];
         ldmatrix_x4(b, smem_addr(kt + (np * 16 + (mat >> 1) * 8 + (lane & 7)) * LDS + kk * 16 +
                                  (mat & 1) * 8));
@@ -313,53 +345,71 @@ attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           s[n][e] = (ragged && k0 + n * 8 + 2 * t + (e & 1) >= T_len) ? -CUDART_INF_F : x;
         }
       }
-    } else if (k0 + BK > T_len) {  // the ragged last tile: keys >= T leave the softmax
+    } else if (k0 + KT > T_len) {  // the ragged last tile: keys >= T leave the softmax
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < KT / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           if (k0 + n * 8 + 2 * t + (e & 1) >= T_len) s[n][e] = -CUDART_INF_F;
     }
 
-    // online softmax over rows g (e = 0, 1) and g + 8 (e = 2, 3)
-    float mx[2] = {m[0], m[1]};
+    uint32_t pa[KT / 16][4];  // P as the A fragments of PV: KT / 16 k-steps of 16 keys
+    if constexpr (MODE == MODE_DOTSONLY) {
+      // no softmax: p = bf16(s * 1e-6) keeps PV's dependence on S; each row's l
+      // gains 1 a tile, from one thread of its quad (the quad's sum is l)
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
-    }
-    float mb[2];  // K5: the running maximum times log2e
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
-      // finite: every tile holds a key < T
-      const float alpha = TERMS ? expf(m[i] - mx[i]) : exp2f((m[i] - mx[i]) * LOG2E);
-      m[i] = mx[i];
-      mb[i] = mx[i] * LOG2E;
-      l[i] *= alpha;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        o[n][2 * i] *= alpha;
-        o[n][2 * i + 1] *= alpha;
+      for (int n = 0; n < KT / 8; ++n) {
+        pa[n >> 1][(n & 1) * 2] = pack_bf16(s[n][0] * 1e-6f, s[n][1] * 1e-6f);
+        pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(s[n][2] * 1e-6f, s[n][3] * 1e-6f);
       }
-    }
-    uint32_t pa[4][4];  // P as the A fragments of PV: 4 k-steps of 16 keys
+      if (t == 0) {
+        l[0] += 1.f;
+        l[1] += 1.f;
+      }
+    } else {
+      // online softmax over rows g (e = 0, 1) and g + 8 (e = 2, 3)
+      float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      float p[4];
+      for (int n = 0; n < KT / 8; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+      }
+      float mb[2];  // K5: the running maximum times log2e
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        p[e] = TERMS ? expf(s[n][e] - m[e >> 1]) : exp2f(fmaf(s[n][e], LOG2E, -mb[e >> 1]));
-      l[0] += p[0] + p[1];  // the unrounded p
-      l[1] += p[2] + p[3];
-      pa[n >> 1][(n & 1) * 2] = pack_bf16(p[0], p[1]);
-      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+        // finite: every tile holds a key < T
+        const float alpha = TERMS ? expf(m[i] - mx[i]) : exp2f((m[i] - mx[i]) * LOG2E);
+        m[i] = mx[i];
+        mb[i] = mx[i] * LOG2E;
+        l[i] *= alpha;
+        if constexpr (MODE == MODE_FULL) {  // noexp: the accumulator keeps its scale
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            o[n][2 * i] *= alpha;
+            o[n][2 * i + 1] *= alpha;
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < KT / 8; ++n) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[e] = MODE == MODE_NOEXP ? s[n][e] - m[e >> 1]  // noexp: the identity in place of exp
+                 : TERMS            ? expf(s[n][e] - m[e >> 1])
+                                    : exp2f(fmaf(s[n][e], LOG2E, -mb[e >> 1]));
+        l[0] += p[0] + p[1];  // the unrounded p
+        l[1] += p[2] + p[3];
+        pa[n >> 1][(n & 1) * 2] = pack_bf16(p[0], p[1]);
+        pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+      }
     }
 
     // O += P V
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < KT / 16; ++kk) {
 #pragma unroll
       for (int dp = 0; dp < 4; ++dp) {  // two n-tiles of 8 dims
         uint32_t b[4];
@@ -388,17 +438,261 @@ attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <bool TERMS>
+// K8's onepass: an exact softmax over whole key rows (no m / l recurrence),
+// R = 16 or 32 query rows a block, W = R / 4 warps; T <= 1024, a multiple
+// of 64. K and then V stream through a ring of two stages of 32 W keys; in
+// each stage warp w takes keys [32 w, 32 w + 32). S = Q K^T goes into f32
+// score rows in shared memory; 8 threads a row take its maximum, p =
+// exp2(s log2e - m log2e) in place and l; P V reads P from those rows,
+// rounded to bf16 pairs as A fragments, each warp's partial O in registers;
+// the W partials are summed in warp order through shared memory.
+template <int R>
+__host__ __device__ constexpr int onepass_warps() {
+  return R / 4;
+}
+constexpr int ONEPASS_RLD = DH + 8;  // row of a warp's partial O, f32
+
+template <int R>
+size_t onepass_smem_bytes(int T_len) {
+  constexpr int W = onepass_warps<R>();
+  const size_t scores = (size_t)R * (T_len + 8), partials = (size_t)W * R * ONEPASS_RLD;
+  return (size_t)(R + 2 * 32 * W) * LDS * sizeof(bf16) + R * sizeof(float) +
+         (scores > partials ? scores : partials) * sizeof(float);
+}
+
+template <int R>
+__global__ void __launch_bounds__(R * 8, R == 16 ? 2 : 1)
+attn_onepass_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ out, int T_len) {
+  constexpr int W = onepass_warps<R>(), THREADS = 32 * W, KS = 32 * W;  // KS: keys a stage
+  constexpr int MT = R / 16;                                            // m16 row tiles
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sq = reinterpret_cast<bf16*>(smem);                // [R][LDS]
+  bf16* ring = sq + R * LDS;                               // [2][KS][LDS]: K, then V
+  float* lrow = reinterpret_cast<float*>(ring + 2 * KS * LDS);  // [R]
+  float* S = lrow + R;  // [R][T + 8] scores, then p; at the end [W][R][ONEPASS_RLD] partials
+  // T + 8 = 8 (mod 32) words: the float2 accesses of a fragment's rows g
+  // and columns 2t fall on distinct banks
+  const int lds = T_len + 8;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mat = lane >> 3;
+  const int q0 = blockIdx.x * R;
+  const size_t base = (size_t)blockIdx.y * T_len * DH;
+  const int nst = (T_len + KS - 1) / KS;  // stages of each product
+
+  // stage i < nst: keys [i KS, (i + 1) KS) of K; then the same of V
+  auto load_stage = [&](int i) {
+    load_tile<KS, THREADS>(ring + (i & 1) * KS * LDS, (i < nst ? k : v) + base, (i % nst) * KS,
+                           T_len);
+  };
+  load_tile<R, THREADS>(sq, q + base, q0, T_len);
+  load_stage(0);
+  cp_async_commit();
+
+  // 1. S = Q K^T into the score rows
+  uint32_t qa[MT][4][4];
+  for (int i = 0; i < nst; ++i) {
+    load_stage(i + 1);  // V's first stage overlaps the last of K and the softmax
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (i == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          ldmatrix_x4(qa[mt][kk], smem_addr(sq + (mt * 16 + (mat & 1) * 8 + (lane & 7)) * LDS +
+                                            kk * 16 + (mat >> 1) * 8));
+    }
+    const int kw = i * KS + warp * 32;  // T % 64 == 0: a warp's 32 keys are all < T or none
+    if (kw < T_len) {
+      const bf16* kt = ring + (i & 1) * KS * LDS + warp * 32 * LDS;
+      float s[MT][4][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t b[4];
+          ldmatrix_x4(b, smem_addr(kt + (np * 16 + (mat >> 1) * 8 + (lane & 7)) * LDS + kk * 16 +
+                                   (mat & 1) * 8));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(s[mt][2 * np], qa[mt][kk], b[0], b[1]);
+            mma_bf16(s[mt][2 * np + 1], qa[mt][kk], b[2], b[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          float* dst = S + (mt * 16 + g) * lds + kw + n * 8 + 2 * t;
+          *reinterpret_cast<float2*>(dst) = make_float2(s[mt][n][0], s[mt][n][1]);
+          *reinterpret_cast<float2*>(dst + 8 * lds) = make_float2(s[mt][n][2], s[mt][n][3]);
+        }
+    }
+    __syncthreads();
+  }
+
+  // 2. each row's maximum, p in place (f32, unrounded) and l = sum(p)
+  {
+    const int r = tid >> 3, u = tid & 7;
+    float* row = S + r * lds;
+    float mx = -CUDART_INF_F;
+    for (int c = u * 4; c < T_len; c += 32) {
+      const float4 x = *reinterpret_cast<const float4*>(row + c);
+      mx = fmaxf(mx, fmaxf(fmaxf(x.x, x.y), fmaxf(x.z, x.w)));
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+    const float mb = mx * LOG2E;
+    float sum = 0.f;
+    for (int c = u * 4; c < T_len; c += 32) {
+      float4 x = *reinterpret_cast<const float4*>(row + c);
+      x.x = exp2f(fmaf(x.x, LOG2E, -mb));
+      x.y = exp2f(fmaf(x.y, LOG2E, -mb));
+      x.z = exp2f(fmaf(x.z, LOG2E, -mb));
+      x.w = exp2f(fmaf(x.w, LOG2E, -mb));
+      sum += (x.x + x.y) + (x.z + x.w);
+      *reinterpret_cast<float4*>(row + c) = x;
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) sum += __shfl_xor_sync(FULL, sum, off);
+    if (u == 0) lrow[r] = sum;
+  }
+  __syncthreads();
+
+  // 3. O = P V, each warp over its keys of every stage
+  float o[MT][8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][n][e] = 0.f;
+  for (int i = nst; i < 2 * nst; ++i) {
+    if (i + 1 < 2 * nst) {
+      load_stage(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int kw = (i - nst) * KS + warp * 32;
+    if (kw < T_len) {
+      const bf16* vt = ring + (i & 1) * KS * LDS + warp * 32 * LDS;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t pa[MT][4];  // p rounded to bf16 pairs: rows g, g + 8; keys 2t, 2t + 8
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const float* p0 = S + (mt * 16 + g) * lds + kw + kk * 16 + 2 * t;
+          const float2 a0 = *reinterpret_cast<const float2*>(p0);
+          const float2 a1 = *reinterpret_cast<const float2*>(p0 + 8 * lds);
+          const float2 a2 = *reinterpret_cast<const float2*>(p0 + 8);
+          const float2 a3 = *reinterpret_cast<const float2*>(p0 + 8 * lds + 8);
+          pa[mt][0] = pack_bf16(a0.x, a0.y);
+          pa[mt][1] = pack_bf16(a1.x, a1.y);
+          pa[mt][2] = pack_bf16(a2.x, a2.y);
+          pa[mt][3] = pack_bf16(a3.x, a3.y);
+        }
+#pragma unroll
+        for (int dp = 0; dp < 4; ++dp) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, smem_addr(vt + (kk * 16 + (mat & 1) * 8 + (lane & 7)) * LDS +
+                                         dp * 16 + (mat >> 1) * 8));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(o[mt][2 * dp], pa[mt], b[0], b[1]);
+            mma_bf16(o[mt][2 * dp + 1], pa[mt], b[2], b[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the last one also ends every read of P before the partials overwrite it
+  }
+
+  // 4. the warps' partial O, summed in warp order; out = bf16(O / l)
+  float* part = S;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float* dst = part + (warp * R + mt * 16 + g) * ONEPASS_RLD + n * 8 + 2 * t;
+      *reinterpret_cast<float2*>(dst) = make_float2(o[mt][n][0], o[mt][n][1]);
+      *reinterpret_cast<float2*>(dst + 8 * ONEPASS_RLD) = make_float2(o[mt][n][2], o[mt][n][3]);
+    }
+  __syncthreads();
+  {
+    const int r = tid >> 3, c = (tid & 7) * 8;  // 8 threads a row, 8 dims each
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const float* src = part + (w * R + r) * ONEPASS_RLD + c;
+      const float4 x = *reinterpret_cast<const float4*>(src);
+      const float4 y = *reinterpret_cast<const float4*>(src + 4);
+      acc[0] += x.x;
+      acc[1] += x.y;
+      acc[2] += x.z;
+      acc[3] += x.w;
+      acc[4] += y.x;
+      acc[5] += y.y;
+      acc[6] += y.z;
+      acc[7] += y.w;
+    }
+    const float inv = 1.f / fmaxf(lrow[r], 1e-30f);
+    uint4 packed;
+    packed.x = pack_bf16(acc[0] * inv, acc[1] * inv);
+    packed.y = pack_bf16(acc[2] * inv, acc[3] * inv);
+    packed.z = pack_bf16(acc[4] * inv, acc[5] * inv);
+    packed.w = pack_bf16(acc[6] * inv, acc[7] * inv);
+    *reinterpret_cast<uint4*>(out + base + (size_t)(q0 + r) * DH + c) = packed;
+  }
+}
+
+template <bool TERMS, int MODE, int KT>
 int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* E, const float* mask,
            bf16* out, int BH, int H, int T_len, int P, int left, int pos_ld, void* stream) {
   const size_t smem =
-      QKV_SMEM_BYTES + (TERMS ? (size_t)(2 * BK + BQ * pos_ld) * sizeof(float) : 0);
-  cudaError_t err = cudaFuncSetAttribute(attention_bf16_kernel<TERMS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      qkv_smem_bytes<KT>() + (TERMS ? (size_t)(2 * BK + BQ * pos_ld) * sizeof(float) : 0);
+  auto kernel = attention_bf16_kernel<TERMS, MODE, KT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T_len + BQ - 1) / BQ, BH);
-  attention_bf16_kernel<TERMS><<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, E, mask, out, H, T_len, P, left, pos_ld);
+  kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(q, k, v, E, mask, out, H, T_len,
+                                                               P, left, pos_ld);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8's ablations: K5's kernel at another MODE and KT, without K4's terms
+template <int MODE, int KT>
+int launch_ablation(const bf16* q, const bf16* k, const bf16* v, bf16* out, int BH, int T_len,
+                    void* stream) {
+  return launch<false, MODE, KT>(q, k, v, nullptr, nullptr, out, BH, 1, T_len, 0, 0, 0, stream);
+}
+
+template <int R>
+int launch_onepass(const bf16* q, const bf16* k, const bf16* v, bf16* out, int BH, int T_len,
+                   void* stream) {
+  auto kernel = attn_onepass_bf16_kernel<R>;
+  const size_t smem = onepass_smem_bytes<R>(T_len);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(T_len / R, BH), 32 * onepass_warps<R>(), smem,
+           static_cast<cudaStream_t>(stream)>>>(q, k, v, out, T_len);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -407,7 +701,7 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* E, const flo
 // K5: q (pre-scaled), k, v, out [BH, T, 64] bf16, contiguous.
 extern "C" int flash_attention_plain_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out,
                                           int BH, int T, void* stream) {
-  return launch<false>(q, k, v, nullptr, nullptr, out, BH, 1, T, 0, 0, 0, stream);
+  return launch<false, MODE_FULL, BK>(q, k, v, nullptr, nullptr, out, BH, 1, T, 0, 0, 0, stream);
 }
 
 // K4: q, k, v, out [BH, T, 64] bf16 (BH = batch x H heads); E [P, 64] bf16
@@ -417,5 +711,27 @@ extern "C" int flash_attention_relkey_bf16(const bf16* q, const bf16* k, const b
                                            const bf16* E, const float* mask, bf16* out, int BH,
                                            int H, int T, int P, int left, void* stream) {
   const int pos_ld = P > 0 ? (P | 1) : 0;  // odd: the pos stores do not conflict
-  return launch<true>(q, k, v, E, mask, out, BH, H, T, P, left, pos_ld, stream);
+  return launch<true, MODE_FULL, BK>(q, k, v, E, mask, out, BH, H, T, P, left, pos_ld, stream);
+}
+
+// K8 in bf16: q (pre-scaled), k, v, out [BH, T, 64] bf16, contiguous. mode:
+// 0 noexp, 1 dotsonly (tile = keys a recurrence step, 64 or 128), 2 onepass
+// (tile = query rows a block, 16 or 32), 3 full (tile 64: K5's own
+// instantiation). T must be a multiple of the key tile for the tiled modes
+// and of 64, at most 1024, for onepass (the wrapper checks).
+extern "C" int attn_ablation_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out, int BH,
+                                  int T, int mode, int tile, void* stream) {
+  if (mode == MODE_NOEXP && tile == 64)
+    return launch_ablation<MODE_NOEXP, 64>(q, k, v, out, BH, T, stream);
+  if (mode == MODE_NOEXP && tile == 128)
+    return launch_ablation<MODE_NOEXP, 128>(q, k, v, out, BH, T, stream);
+  if (mode == MODE_DOTSONLY && tile == 64)
+    return launch_ablation<MODE_DOTSONLY, 64>(q, k, v, out, BH, T, stream);
+  if (mode == MODE_DOTSONLY && tile == 128)
+    return launch_ablation<MODE_DOTSONLY, 128>(q, k, v, out, BH, T, stream);
+  if (mode == MODE_FULL && tile == 64)
+    return launch_ablation<MODE_FULL, 64>(q, k, v, out, BH, T, stream);
+  if (mode == MODE_ONEPASS && tile == 16) return launch_onepass<16>(q, k, v, out, BH, T, stream);
+  if (mode == MODE_ONEPASS && tile == 32) return launch_onepass<32>(q, k, v, out, BH, T, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,13 +3,17 @@
 Counterpart of the two Pallas kernels inside ``scripts/
 profile_attn_micro.py:main`` (``ablation_kernel`` through ``run_ablation``,
 ``onepass_kernel`` through ``run_onepass``). They are deliberately NOT
-valid attention: each takes a part of the softmax out of K5's first,
-f32-FMA design so that the time it saves is that part's cost. The ``full``
-mode is that design whole (valid attention, the baseline the ablations are
-subtracted from). The CUDA kernel is ``csrc/attn_ablation.cu``; the modes
-are described there. :func:`attn_ablation_plain` repeats each mode's
-arithmetic with a PyTorch loop over key tiles; it runs for CPU tensors
-and is what the kernel is held against on the card.
+valid attention: each is K5's kernel with one part of its softmax taken
+out, so that K5's time minus an ablation's is what that part costs in K5.
+In bf16, the micro-profile's dtype, the modes are instantiations of K5's
+tensor-core kernel (``csrc/flash_attention_bf16.cu``): ``full`` (key tile
+64) is K5's own instantiation, ``noexp`` and ``dotsonly`` change only its
+softmax step, and ``onepass`` is a kernel of its own from the same
+building blocks. In f32 they run on FMAs (``csrc/attn_ablation.cu``, the
+design K5 had before its tensor-core kernel). The modes are described in
+both sources. :func:`attn_ablation_plain` repeats each mode's arithmetic
+with a PyTorch loop over key tiles; it runs for CPU tensors and is what
+the kernel is held against on the card.
 
 q is pre-scaled by dh^-0.5, as at ``profile_attn_micro.py:103``.
 """

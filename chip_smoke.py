@@ -66,11 +66,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
      f32 fine stage once more at ``fine_precision="default"``, which must
      launch K5's one-pass form 24 times a pass and the 3-pass one never
      (its agreement with the golden printed);
-  3d. K8 (the attention ablations and their baseline ``full64``) against
-     its plain twins at [16, 16, 1024, 64] bf16, each mode and tile; then the
-     K8 path, the attention micro-profile of
+  3d. K8 (the attention ablations: K5's bf16 kernel with one part taken
+     out, ``csrc/flash_attention_bf16.cu``; ``full64`` is K5's own
+     instantiation) with each instantiation's registers and spill from the
+     ``-Xptxas -v`` log, against its plain twins at [16, 16, 1024, 64] bf16,
+     each mode and tile, ``full64`` bit for bit equal to K5; then the K8
+     path, the attention micro-profile of
      ``scripts/profile_attn_micro_torch.py``, printed one case per line with
-     K5 beside ``full64`` and SDPA, and ``full64``'s split into products and
+     K5 beside ``full64`` and SDPA, and K5's own split into products and
      softmax;
   3e. K4 in its no-rel masked form at the HuBERT shape [8, 12, 1499, 64]
      against its plain version and against SDPA with the padding bias;
@@ -215,6 +218,7 @@ import functools
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1363,10 +1367,40 @@ def _ar_rows_gate(tag, tokens, g):
     return failures
 
 
+#: the instantiations of csrc/flash_attention_bf16.cu's kernels, by their
+#: template arguments in the build log: (TERMS, MODE, KT) of
+#: attention_bf16_kernel, R of attn_onepass_bf16_kernel
+K8_FORMS = {("0", "3", "64"): "K5 / full64", ("1", "3", "64"): "K4 bf16",
+            ("0", "0", "64"): "noexp64", ("0", "0", "128"): "noexp128",
+            ("0", "1", "64"): "dotsonly64", ("0", "1", "128"): "dotsonly128",
+            ("16",): "onepass16", ("32",): "onepass32"}
+
+
+def build_lines(patterns, forms):
+    """``ptxas -v``'s registers, barriers, stack and spill for each kernel
+    instantiation whose name matches one of the regular expressions
+    ``patterns``, named by ``forms`` from the match's groups (its template
+    arguments)."""
+    log, out = _build.build_log().splitlines(), []
+    for i, line in enumerate(log):
+        if "Compiling entry" not in line:
+            continue
+        m = next(filter(None, (re.search(p, line) for p in patterns)), None)
+        if m:
+            props = [x.strip().replace("ptxas info    : ", "") for x in log[i + 1:i + 4]
+                     if "registers" in x or "spill" in x]
+            out.append(f"{forms.get(m.groups(), m.group(0))}: " + "; ".join(props))
+    return out
+
+
 def phase3d_attn_ablation(dev):
-    """K8 against its twins at the micro-profile's shape, then the K8 path:
-    the attention micro-profile, driven with K8's counts at 0. Returns the
-    entries of the K8 kernels and their launch counts from that run."""
+    """K8 against its twins at the micro-profile's shape, ``full64`` bit for
+    bit against K5, then the K8 path: the attention micro-profile, driven
+    with K8's counts at 0. Returns the entries of the K8 kernels and their
+    launch counts from that run."""
+    for line in build_lines([r"attention_bf16_kernelILb(\d)ELi(\d+)ELi(\d+)EE",
+                             r"attn_onepass_bf16_kernelILi(\d+)EE"], K8_FORMS):
+        say(f"[3d] K5's bf16 kernel and K8, {line}")
     B, H, T, dh = 16, 16, 1024, 64
     q, k, v = micro.inputs(B, H, T, dh, dev, seed=0)
     res = {}
@@ -1377,10 +1411,13 @@ def phase3d_attn_ablation(dev):
         ref = attn_ablation_plain(q, k, v, mode, tile)
         err = (out.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
+        if case == "full64" and not torch.equal(out, flash_attention_plain(q, k, v)):
+            raise AssertionError("K8 full64 is not K5's kernel: their outputs differ")
         del out, ref
         plain_ms = cuda_ms(lambda: attn_ablation_plain(q, k, v, mode, tile), warmup=1, reps=3)
         say(f"[3d] K8 {case:11s} [16, 16, 1024, 64] bf16: max|kernel-twin| {err:.3e} of an "
-            f"output scale {scale:.3e} (bound 2^-6 of it)  twin {plain_ms:.3f} ms")
+            f"output scale {scale:.3e} (bound 2^-6 of it)  twin {plain_ms:.3f} ms"
+            + ("; bit for bit K5's output" if case == "full64" else ""))
         if not err <= BF16_SHARE * scale:
             raise AssertionError(f"K8 {case} differs from its twin by {err} (scale {scale})")
         # the two products, 4 T^2 dh per (batch, head), on bf16 inputs
@@ -1392,10 +1429,9 @@ def phase3d_attn_ablation(dev):
     times = micro.micro_profile(B, H, T, dh, layers=24, device=dev)
     counts = {case: attn_ablation.launches[case] for case in CASES}
     for name, ms in times.items():
-        say(f"[3d] micro-profile {name:12s} {ms:8.3f} ms/layer")
-    say(f"[3d] K5 (tensor cores) {times['plain']:.3f} ms, the FMA design (full64) "
-        f"{times['full64']:.3f} ms, SDPA {times['sdpa']:.3f} ms")
-    say("[3d] full64 split: " + ", ".join(f"{k} {v:.3f}" for k, v in micro.k5_split(times).items()))
+        say(f"[3d] micro-profile {name:12s} {ms:8.4f} ms/layer")
+    for line in micro.split_lines(times):
+        say(f"[3d] {line}")
     for case in CASES:
         # onepass and full are softmax attention (p rounded to bf16): SDPA
         # computes that function; the ablations are no function a library computes
@@ -1562,20 +1598,6 @@ def onepass_smem_bytes(P):
     return 1024 + -(-bars // 1024) * 1024 + 80 * 256 + 128 * (P | 1) * 4
 
 
-def onepass_build_lines():
-    """``ptxas -v``'s lines for each instantiation of the one-pass kernel:
-    registers, barriers, stack and spill."""
-    log, out = _build.build_log().splitlines(), []
-    for i, line in enumerate(log):
-        if "Compiling entry" in line and "attention_tf32_kernel" in line:
-            key = line.split("attention_tf32_kernelILb", 1)[1]
-            form = ONEPASS_FORMS.get((key[0], key[key.index("ELi") + 3]), key[:8])
-            props = [x.strip().replace("ptxas info    : ", "") for x in log[i + 1:i + 4]
-                     if "registers" in x or "spill" in x]
-            out.append(f"{form}: " + "; ".join(props))
-    return out
-
-
 def phase3g_flash_onepass(dev):
     """The one-pass form of K4 and K5's f32 path (``csrc/flash_attention_tf32.cu``,
     what ``precision="default"`` and ``"high"`` launch): K4
@@ -1588,7 +1610,7 @@ def phase3g_flash_onepass(dev):
     f32 with the TF32 switches on (the mask as a boolean ``attn_mask``),
     with the backend SDPA took; its bound in one TF32 pass. Returns the
     kernels line's entries."""
-    for line in onepass_build_lines():
+    for line in build_lines([r"attention_tf32_kernelILb(\d)ELi(\d)E"], ONEPASS_FORMS):
         say(f"[3g] one-pass kernel, {line}")
     say(f"[3g] one-pass kernel, dynamic shared memory a block: {onepass_smem_bytes(73)} bytes "
         f"with the rel term (P = 73), {onepass_smem_bytes(0)} without; one block an SM, "
@@ -2913,7 +2935,7 @@ def main():
     for case in CASES:
         counts[f"attn_ablation_{case}"] = k8_counts[case]
         rows.append((f"attn_ablation_{case}", f"attn_ablation_{case}",
-                     "audiotoken_tpu_torch/csrc/attn_ablation.cu",
+                     "audiotoken_tpu_torch/csrc/flash_attention_bf16.cu",
                      k8_replaces.get(case.rstrip("0123456789"),
                                      "scripts/profile_attn_micro.py:108")))
     kernels = [

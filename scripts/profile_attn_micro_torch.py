@@ -3,21 +3,24 @@ an NVIDIA GPU.
 
     python scripts/profile_attn_micro_torch.py [--batch 16 --heads 16 --seq 1024 --dh 64 --layers 24]
 
-Splits the time of an FMA flash attention (K5's first design, which K8
-keeps as its ``full`` mode) between its two dot products and its online
+Splits K5's time (``csrc/flash_attention_bf16.cu``, Bark-fine's attention,
+bf16 on the tensor cores) between its two dot products and its online
 softmax, by timing K8's ablations of it (``ops/attn_ablation.py``; not
-valid attention, cost attribution only), beside K5 itself
-(``csrc/flash_attention_bf16.cu``, Bark-fine's attention, on the tensor
-cores) and the other attention routes:
+valid attention, cost attribution only). Each ablation is K5's kernel with
+one part taken out, at K5's tiles, copies and occupancy (the 128-key
+steps and onepass excepted), so ``plain`` minus an ablation is what that
+part costs in K5. Beside them the other attention routes:
 
-  plain                  K5 itself, bf16 on the tensor cores
-  full64                 the FMA design whole (valid attention, key tiles of
-                         64): what the ablations are subtracted from
+  plain                  K5 itself
+  full64                 K5's instantiation reached through K8's entry:
+                         the check that the ablations are K5's design
   noexp64, noexp128      exp replaced by the identity, no rescale of the
-                         accumulator, key tiles of 64 / 128
+                         accumulator, 64 / 128 keys a recurrence step (128:
+                         64 score registers a thread, one block an SM)
   dotsonly64, dotsonly128  both products, the softmax replaced by a scaled copy
   onepass16, onepass32   exact softmax over whole score rows kept in shared
-                         memory, 16 / 32 query rows a block
+                         memory, 16 / 32 query rows a block, on the same
+                         tensor-core building blocks
   xla                    materialised f32 scores, softmax, bf16 probabilities
   xla_bf16s              the same with exp taken in bf16 (bf16 probabilities)
   sdpa                   F.scaled_dot_product_attention, the library yardstick
@@ -109,14 +112,24 @@ def micro_profile(batch=16, heads=16, seq=1024, dh=64, layers=24, device=None):
 
 
 def k5_split(times):
-    """The FMA design's time (``full64``) split by its ablations: the two
-    products alone (``dotsonly64``), the softmax on top of them, and exp
-    with the accumulator's rescale (``full64`` minus ``noexp64``), all in
-    ms. Every term comes from one design; K5's own time (``plain``, another
-    design) is in none of them."""
-    return {"dots_ms": times["dotsonly64"],
-            "softmax_ms": times["full64"] - times["dotsonly64"],
-            "exp_and_rescale_ms": times["full64"] - times["noexp64"]}
+    """K5's own time (``plain``) split by its ablations, in ms: the two
+    products alone (``dotsonly64``), the softmax on top of them (``plain``
+    minus ``dotsonly64``), and exp with the accumulator's rescale (``plain``
+    minus ``noexp64``). Each ablation is K5's kernel at K5's tiles and
+    occupancy with that part taken out."""
+    plain = times["plain"]
+    return {"dots_ms": times["dotsonly64"], "softmax_ms": plain - times["dotsonly64"],
+            "exp_and_rescale_ms": plain - times["noexp64"]}
+
+
+def split_lines(times):
+    """K5 beside ``full64`` (one kernel: their times agree within run to
+    run) and SDPA, and K5's split with each term's share of ``plain``."""
+    plain = times["plain"]
+    return [f"K5 (plain) {plain:.4f} ms, K5 through K8's entry (full64) "
+            f"{times['full64']:.4f} ms, SDPA {times['sdpa']:.4f} ms",
+            "K5 split: " + ", ".join(f"{k} {v:.4f} ({100 * v / plain:.1f} %)"
+                                     for k, v in k5_split(times).items())]
 
 
 def main():
@@ -136,12 +149,10 @@ def main():
           f"{args.layers} launches a case", flush=True)
     times = micro_profile(args.batch, args.heads, args.seq, args.dh, args.layers)
     for name, ms in times.items():
-        print(f"{name:12s}: {ms:8.3f} ms/layer  ({ms * args.layers:8.1f} ms / "
+        print(f"{name:12s}: {ms:8.4f} ms/layer  ({ms * args.layers:8.2f} ms / "
               f"{args.layers} calls)", flush=True)
-    print(f"K5 (tensor cores) {times['plain']:.3f} ms, the FMA design (full64) "
-          f"{times['full64']:.3f} ms, SDPA {times['sdpa']:.3f} ms", flush=True)
-    print("full64 split: " + ", ".join(f"{k} {v:.3f}" for k, v in k5_split(times).items()),
-          flush=True)
+    for line in split_lines(times):
+        print(line, flush=True)
 
 
 if __name__ == "__main__":

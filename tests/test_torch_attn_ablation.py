@@ -16,8 +16,13 @@ bound means anything): f32 2e-5, where only the order of sums differs. In
 bf16 a score summed in another order can round p to the neighbouring bf16
 value, so 2^-7 of the output's scale (the K5 bound of the card tests).
 The CUDA kernel is held against these twins on the card
-(tests/test_torch_kernels_cuda.py, chip_smoke.py 3d).
+(tests/test_torch_kernels_cuda.py, chip_smoke.py 3d). In bf16 that kernel
+is K5's (``csrc/flash_attention_bf16.cu``) with one part taken out; a numpy
+transcription of its order of work is held against the twins here.
 """
+
+import os
+import sys
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -178,3 +183,103 @@ def test_refusals():
         attn_ablation(q, k, v, "dotsonly", 128)
     with pytest.raises(ValueError, match="unknown mode"):
         attn_ablation_plain(q, k, v, "exp", 64)
+
+
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _fma_log2(s, m):
+    """fmaf(s, log2e, -m log2e) in f32: the product exact, one rounding."""
+    return (s.astype(np.float64) * np.float64(LOG2E)
+            - (m * LOG2E).astype(np.float64)[..., None]).astype(np.float32)
+
+
+def _quad_sum(l):
+    """The quad's four partial sums combined as two shuffles do it."""
+    return (l[..., 0] + l[..., 1]) + (l[..., 2] + l[..., 3])
+
+
+def _k5_kernel_np(q, k, v, mode, tile):
+    """K8's bf16 kernel in its order of work (csrc/flash_attention_bf16.cu),
+    numpy f32. ``noexp``, ``dotsonly`` and ``full`` are K5's kernel: per
+    recurrence step of ``tile`` keys (at 128 both 64-key halves are scored
+    before m' is taken), each row's l kept as the four partial sums of a
+    quad (thread t holds keys 8n + 2t and 8n + 2t + 1 of each 8-key n-tile)
+    and combined at the end; ``full`` in the log2 domain, alpha = exp2((m -
+    m') log2e) and p = exp2(fma(s, log2e, -m' log2e)); ``dotsonly``'s 1 a
+    step added by one thread of the quad. ``onepass``: exact rows, p in the
+    log2 domain, l summed by 8 threads a row (float4 chunks 32 floats apart)
+    and a shuffle tree. Every mode writes bf16(acc * (1 / max(l, 1e-30)))."""
+    q, k, v = (t.float().numpy() for t in (q, k, v))
+    lead = q.shape[:-1]
+    if mode == "onepass":
+        s = q @ np.swapaxes(k, -1, -2)
+        m = s.max(axis=-1)
+        p = np.exp2(_fma_log2(s, m))
+        chunks = p.reshape(lead + (-1, 8, 4))  # [.., i, u, 4]: thread u's i-th float4
+        part = ((chunks[..., 0] + chunks[..., 1]) + (chunks[..., 2] + chunks[..., 3])).sum(
+            axis=-2, dtype=np.float32)  # [.., u], in i order
+        for off in (1, 2, 4):
+            part = part + part[..., np.arange(8) ^ off]
+        l, acc = part[..., 0], _round(p, "bf16") @ v
+    else:
+        m = np.full(lead, -np.inf, np.float32)
+        lq = np.zeros(lead + (4,), np.float32)
+        acc = np.zeros_like(q)
+        for k0 in range(0, q.shape[-2], tile):
+            s = q @ np.swapaxes(k[..., k0:k0 + tile, :], -1, -2)
+            if mode == "dotsonly":
+                p = s * np.float32(1e-6)
+                lq[..., 0] += np.float32(1.0)
+            else:
+                mx = np.maximum(m, s.max(axis=-1))
+                alpha = np.exp2((m - mx) * LOG2E)
+                lq *= alpha[..., None]
+                if mode == "full":
+                    acc *= alpha[..., None]
+                p = s - mx[..., None] if mode == "noexp" else np.exp2(_fma_log2(s, mx))
+                pairs = p.reshape(lead + (tile // 8, 4, 2))  # [.., n, t, 2]
+                for n in range(tile // 8):
+                    lq += pairs[..., n, :, 0] + pairs[..., n, :, 1]
+                m = mx
+            acc += _round(p, "bf16") @ v[..., k0:k0 + tile, :]
+        l = _quad_sum(lq)
+    inv = np.float32(1.0) / np.maximum(l, np.float32(1e-30))
+    return _round(acc * inv[..., None], "bf16")
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_kernel_order_of_work_matches_twin(case):
+    mode = case.rstrip("0123456789")
+    tile = int(case[len(mode):])
+    q, k, v = _inputs((2, 2, 256, 64), "bf16", seed=20 + tile)
+    _assert_close(_k5_kernel_np(q, k, v, mode, tile),
+                  attn_ablation_plain(q, k, v, mode, tile).float().numpy(), "bf16")
+
+
+def test_dotsonly_order_of_work_counts_tiles():
+    """dotsonly's l is the number of key tiles, one count a row (not one a
+    thread of the quad): the output is bf16(acc / tiles)."""
+    q, k, v = _inputs((1, 2, 256, 64), "bf16", seed=30)
+    for tile in KERNEL_TILES["dotsonly"]:
+        acc = _round(q.float().numpy() @ np.swapaxes(k.float().numpy(), -1, -2)
+                     * np.float32(1e-6), "bf16") @ v.float().numpy()
+        np.testing.assert_allclose(_k5_kernel_np(q, k, v, "dotsonly", tile),
+                                   _round(acc / np.float32(256 // tile), "bf16"),
+                                   rtol=2**-7, atol=2**-7 * np.abs(acc).max() / (256 // tile))
+
+
+def test_k5_split_reads_plain():
+    """The micro-profile splits K5's own time (``plain``); ``full64``, the
+    same kernel through K8's entry, enters no term."""
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
+    from profile_attn_micro_torch import k5_split, split_lines
+
+    times = {"plain": 0.30, "full64": 0.31, "dotsonly64": 0.20, "noexp64": 0.25, "sdpa": 0.16}
+    split = k5_split(times)
+    assert split == pytest.approx({"dots_ms": 0.20, "softmax_ms": 0.10,
+                                   "exp_and_rescale_ms": 0.05})
+    assert k5_split({**times, "full64": 9.0}) == split
+    assert k5_split({**times, "plain": 0.40})["softmax_ms"] == pytest.approx(0.20)
+    lines = split_lines(times)
+    assert "K5 (plain) 0.3000 ms" in lines[0] and "softmax_ms 0.1000 (33.3 %)" in lines[1]

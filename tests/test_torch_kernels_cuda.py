@@ -1002,6 +1002,94 @@ def test_attn_ablation_matches_plain(dev, case, T, dt):
     assert diff <= K8_SHARE[dt] * scale, (case, dt, diff, scale)
 
 
+@pytest.mark.parametrize("case,T", [("noexp128", 128), ("noexp128", 384), ("dotsonly128", 128),
+                                    ("dotsonly128", 384), ("onepass16", 64), ("onepass16", 192),
+                                    ("onepass32", 64), ("onepass32", 320)])
+def test_attn_ablation_short_rows(dev, case, T):
+    """bf16, where K8 is K5's kernel: one and three 128-key steps; onepass
+    with fewer keys than a stage of its ring, and a last stage part empty."""
+    from audiotoken_tpu_torch.ops.attn_ablation import attn_ablation, attn_ablation_plain
+
+    mode = case.rstrip("0123456789")
+    tile = int(case[len(mode):])
+    q = _randn(dev, (2, 3, T, 64), torch.bfloat16, 4, 0.3 * 0.125)
+    k, v = (_randn(dev, (2, 3, T, 64), torch.bfloat16, s, 0.3) for s in (5, 6))
+    out = attn_ablation(q, k, v, mode, tile)
+    ref = attn_ablation_plain(q, k, v, mode, tile)
+    assert torch.isfinite(out.float()).all()
+    diff = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    assert diff <= K8_SHARE["bf16"] * scale, (case, T, diff, scale)
+
+
+@pytest.mark.parametrize("T", [256, 1024])
+@pytest.mark.parametrize("tile", [64, 128])
+def test_dotsonly_counts_one_a_tile(dev, tile, T):
+    """l is the number of key tiles: K5 keeps l as four partial sums a row,
+    one per thread of a quad, and the 1 a tile is added by one of them. The
+    output is round(acc / tiles), acc = bf16(s 1e-6) v in f32; a count from
+    every thread of the quad would scale it by 1/4."""
+    from audiotoken_tpu_torch.ops.attn_ablation import attn_ablation
+
+    q = _randn(dev, (2, 3, T, 64), torch.bfloat16, 7, 0.3 * 0.125)
+    k, v = (_randn(dev, (2, 3, T, 64), torch.bfloat16, s, 0.3) for s in (8, 9))
+    out = attn_ablation(q, k, v, "dotsonly", tile).float()
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    acc = torch.matmul((s * 1e-6).to(torch.bfloat16).float(), v.float())
+    want = acc / (T // tile)
+    diff = (out - want.to(torch.bfloat16).float()).abs().max()
+    assert diff <= K8_SHARE["bf16"] * want.abs().max()
+    # the fitted scale of the output against acc is 1 / tiles
+    ratio = ((out * acc).sum() / (acc * acc).sum()).item()
+    assert abs(ratio * (T // tile) - 1) < 1e-2, ratio
+
+
+def test_full64_is_k5_bit_for_bit(dev):
+    """full64 is K5's own instantiation: the same bits as K5 on the same
+    pre-scaled q, k, v."""
+    from audiotoken_tpu_torch.ops.attn_ablation import attn_ablation
+    from audiotoken_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    q = _randn(dev, (2, 3, 1024, 64), torch.bfloat16, 10, 0.3 * 0.125)
+    k, v = (_randn(dev, (2, 3, 1024, 64), torch.bfloat16, s, 0.3) for s in (11, 12))
+    assert torch.equal(attn_ablation(q, k, v, "full", 64), flash_attention_plain(q, k, v))
+
+
+#: sha256 of K5's and K4's bf16 outputs on :func:`_fixed_bf16_attention`'s
+#: inputs, as the kernel gave them before K8's modes were added to it, on
+#: an H100 (PyTorch 2.11.0+cu128, the toolkit's nvcc): K4 with the rel term
+#: and a mask, K4 with the mask alone, K5
+BF16_SHA256 = {
+    "rel_mask": "fc1f225b2a3d6130522010103aee6af1bf30876d930fd70868b71cf13131d993",
+    "mask": "ca92510ae7af8e473e3bc4167ae3b96d0be0071bfb75dbde2572f85629391712",
+    "plain": "5cd798e0ac9983e436936aff12ec7e4cd3017eae8d607989755beac4ed586ffc",
+}
+
+
+def _fixed_bf16_attention(dev):
+    """K5 and K4 (both forms) on bf16 q, k, v, on fixed inputs."""
+    from audiotoken_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    q, k, v, E = _attn_inputs(dev, 2, 3, 300, seed=4321)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    mask = torch.ones((2, 300), device=dev)
+    mask[1, 211:] = 0.0
+    q5, k5, v5 = (_randn(dev, (2, 4, 1024, 64), torch.bfloat16, s, c)
+                  for s, c in ((21, 0.125), (22, 1.0), (23, 1.0)))
+    return {"rel_mask": flash_attention_relkey(q, k, v, E, mask),
+            "mask": flash_attention_relkey(q, k, v, None, mask),
+            "plain": flash_attention_plain(q5, k5, v5)}
+
+
+def test_bf16_attention_bits_unchanged(dev):
+    """K5 and K4 bf16 are the kernel they were before it took K8's modes."""
+    import hashlib
+
+    got = {name: hashlib.sha256(out.cpu().float().numpy().tobytes()).hexdigest()
+           for name, out in _fixed_bf16_attention(dev).items()}
+    assert got == BF16_SHA256
+
+
 def test_attn_ablation_refuses(dev):
     from audiotoken_tpu_torch.ops.attn_ablation import attn_ablation
 
