@@ -24,6 +24,7 @@ from .configs import (
     num_codebooks_to_bandwidth,
 )
 from .encoders import AcousticEncoder, HubertEncoder, Wav2VecBertEncoder, mesh_device
+from .runtime.profiling import span
 
 _ENCODERS = {
     Tokenizers.acoustic: AcousticEncoder,
@@ -220,15 +221,20 @@ class AudioToken:
         self.load_decoder(**kwargs)
         seqs = [np.load(t) if isinstance(t, (os.PathLike, Path, str)) else np.asarray(t)
                 for t in token_seqs]
-        if self.tokenizer_name != Tokenizers.acoustic:
+        if self.tokenizer_name != Tokenizers.acoustic:  # the decoder's call is a span
             return self.decoder.decode_batch([s.reshape(-1).astype(np.int32) for s in seqs])
-        outs, i = [], 0
-        while i < len(seqs):
-            grp = [seqs[i]]
-            while i + len(grp) < len(seqs) and seqs[i + len(grp)].shape == grp[0].shape:
-                grp.append(seqs[i + len(grp)])
-            batch = np.stack([g.reshape(g.shape[-2], g.shape[-1]) for g in grp])
-            wav = self.decoder.forward_codes(batch.astype(np.int32)).cpu().numpy()
-            outs.extend(wav[j].reshape(1, -1) for j in range(len(grp)))
-            i += len(grp)
-        return outs
+        with span("audiotoken.decode"):
+            outs, i = [], 0
+            while i < len(seqs):
+                with span("audiotoken.decode.prepare"):
+                    grp = [seqs[i]]
+                    while i + len(grp) < len(seqs) and seqs[i + len(grp)].shape == grp[0].shape:
+                        grp.append(seqs[i + len(grp)])
+                    batch = np.stack([g.reshape(g.shape[-2], g.shape[-1]) for g in grp])
+                    batch = batch.astype(np.int32)
+                wav = self.decoder.forward_codes(batch)
+                with span("audiotoken.decode.download"):
+                    wav = wav.cpu().numpy()
+                    outs.extend(wav[j].reshape(1, -1) for j in range(len(grp)))
+                i += len(grp)
+            return outs

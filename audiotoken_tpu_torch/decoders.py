@@ -29,6 +29,7 @@ from .nn.gpt import GPT, GPTSampler
 from .nn.rvq import rvq_decode
 from .nn.seanet import SeanetConfig, SeanetDecoder
 from .runtime.precision import get_policy, tf32_numerics
+from .runtime.profiling import span
 from . import weights as weight_store
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -96,14 +97,19 @@ class AcousticDecoder:
     def forward_codes(self, codes) -> torch.Tensor:
         """[B, K, T] codes (numpy or tensor) -> device waveforms [B, T*hop],
         split into sub-batches above ``max_device_batch``."""
-        codes = torch.as_tensor(np.asarray(codes), dtype=torch.int64).to(self.device)
-        return _run_subbatched(self._forward, self.max_device_batch or codes.shape[0], codes)
+        with span("audiotoken.decode.upload"):
+            codes = torch.as_tensor(np.asarray(codes), dtype=torch.int64).to(self.device)
+        return _run_subbatched(self._forward, self.max_device_batch or codes.shape[0], codes,
+                               name="audiotoken.decode.forward")
 
     def __call__(self, input_batch: np.ndarray) -> np.ndarray:
-        codes = np.asarray(input_batch)
-        if codes.ndim == 2:
-            codes = codes[None]
-        return self.forward_codes(codes).cpu().numpy().reshape(1, -1)
+        with span("audiotoken.decode"):
+            codes = np.asarray(input_batch)
+            if codes.ndim == 2:
+                codes = codes[None]
+            wav = self.forward_codes(codes)
+            with span("audiotoken.decode.download"):
+                return wav.cpu().numpy().reshape(1, -1)
 
 
 class _SemanticDecoderBase:
@@ -213,10 +219,11 @@ class _SemanticDecoderBase:
         own. Chunk i samples with ``seed + 1_000_003 * i``, so the output
         equals per-chunk ``decode_batch(chunk_i, seed=...)`` calls."""
         seed = self.seed if seed is None else seed
-        if pipeline_batch and len(sources) > int(pipeline_batch):
-            return self._decode_pipelined(sources, seed, int(pipeline_batch))
-        coarse_rows = self._ar_stage(sources, seed)
-        return self._finish_stage(coarse_rows, seed)
+        with span("audiotoken.decode"):
+            if pipeline_batch and len(sources) > int(pipeline_batch):
+                return self._decode_pipelined(sources, seed, int(pipeline_batch))
+            coarse_rows = self._ar_stage(sources, seed)
+            return self._finish_stage(coarse_rows, seed)
 
     def _decode_pipelined(self, sources, seed: int, chunk: int):
         """Chunk i+1's AR stage on this thread while one worker thread runs
@@ -263,33 +270,34 @@ class _SemanticDecoderBase:
 
     def _ar_stage(self, sources, seed: int):
         """sources -> per-row [2, T] coarse codebook ids."""
-        vocab = self.config.vocab
-        infer = vocab.infer_token[COMMONS.ACOUSTIC]
-        stop = vocab.stop_token[COMMONS.ACOUSTIC]
-        prompts = []
-        for src in sources:
-            # ids past semantic_size land beyond the semantic range of the
-            # joint vocab, as in the reference (ROADMAP, Queue 3)
-            src = np.asarray(src).reshape(-1) + vocab.offsets[COMMONS.SEMANTIC]
-            src = src[: self.config.max_source_tokens]
-            prompts.append(np.concatenate([src, [infer]]).astype(np.int32))
+        with span("audiotoken.decode.ar"):
+            vocab = self.config.vocab
+            infer = vocab.infer_token[COMMONS.ACOUSTIC]
+            stop = vocab.stop_token[COMMONS.ACOUSTIC]
+            prompts = []
+            for src in sources:
+                # ids past semantic_size land beyond the semantic range of the
+                # joint vocab, as in the reference (ROADMAP, Queue 3)
+                src = np.asarray(src).reshape(-1) + vocab.offsets[COMMONS.SEMANTIC]
+                src = src[: self.config.max_source_tokens]
+                prompts.append(np.concatenate([src, [infer]]).astype(np.int32))
 
-        with self.ar_policy.numerics():
-            new_tokens = self.gpt.generate_batch(
-                prompts, max_new_tokens=self.max_new_tokens, temperature=self.temperature,
-                top_k=self.top_k, stop_token=stop, seed=seed)
+            with self.ar_policy.numerics():
+                new_tokens = self.gpt.generate_batch(
+                    prompts, max_new_tokens=self.max_new_tokens, temperature=self.temperature,
+                    top_k=self.top_k, stop_token=stop, seed=seed)
 
-        coarse_rows = []
-        for y in new_tokens:
-            y = y[(y != stop) & (y >= 0)]
-            y = y - vocab.offsets[COMMONS.ACOUSTIC]
-            if y.size < 2:
-                raise RuntimeError("AR model produced no acoustic tokens before the stop token")
-            # clamp stray out-of-range samples; positions are kept so that
-            # the codebook interleaving stays aligned
-            y = np.clip(y, 0, 2 * self.config.per_codebook_size - 1)
-            coarse_rows.append(self._deserialize(y))
-        return coarse_rows
+            coarse_rows = []
+            for y in new_tokens:
+                y = y[(y != stop) & (y >= 0)]
+                y = y - vocab.offsets[COMMONS.ACOUSTIC]
+                if y.size < 2:
+                    raise RuntimeError("AR model produced no acoustic tokens before the stop token")
+                # clamp stray out-of-range samples; positions are kept so that
+                # the codebook interleaving stays aligned
+                y = np.clip(y, 0, 2 * self.config.per_codebook_size - 1)
+                coarse_rows.append(self._deserialize(y))
+            return coarse_rows
 
     def _fine_stage(self, coarse_rows, seed: int):
         """coarse rows -> (fine codes [B, 8, T_max], row lengths): rows padded
@@ -299,7 +307,7 @@ class _SemanticDecoderBase:
         coarse = np.full((len(lens), coarse_rows[0].shape[0], max(lens)), filler, np.int64)
         for i, c in enumerate(coarse_rows):
             coarse[i, :, : lens[i]] = c
-        with self.fine_policy.numerics():
+        with span("audiotoken.decode.fine"), self.fine_policy.numerics():
             return self.bark.generate_fine_batch(coarse, seed=seed), lens
 
     def _finish_stage(self, coarse_rows, seed: int):
@@ -309,10 +317,20 @@ class _SemanticDecoderBase:
     def _acoustic_stage(self, fine, lens):
         """fine codes [B, 8, T_max] and row lengths -> waveforms: the
         acoustic decoder through ``forward_codes`` (so its sub-batch split
-        applies), each row trimmed to its own length."""
-        wav = self.acoustic_decoder.forward_codes(fine).cpu().numpy()  # [B, T_max*hop]
-        hop = self.acoustic_decoder.hop
-        return [wav[i].reshape(1, -1)[:, : n * hop] for i, n in enumerate(lens)]
+        applies), each row trimmed to its own length.
+
+        Past a row's length its codes hold Bark's filler id, which no
+        codebook has: the decoder is given code 0 there instead (``fine``
+        itself is left as it is). The decoder is causal, so a row's
+        waveform up to its length does not depend on what follows."""
+        with span("audiotoken.decode.acoustic"):
+            fine = np.asarray(fine)
+            valid = np.arange(fine.shape[-1]) < np.asarray(lens)[:, None, None]
+            wav = self.acoustic_decoder.forward_codes(np.where(valid, fine, 0))
+            with span("audiotoken.decode.download"):
+                wav = wav.cpu().numpy()  # [B, T_max*hop]
+                hop = self.acoustic_decoder.hop
+                return [wav[i].reshape(1, -1)[:, : n * hop] for i, n in enumerate(lens)]
 
 
 class HubertDecoder(_SemanticDecoderBase):

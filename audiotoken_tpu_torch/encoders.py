@@ -52,6 +52,7 @@ from .runtime.precision import (
     get_policy,
     resolve_mixed,
 )
+from .runtime.profiling import span
 from .weights import (
     acoustic_from_numpy,
     get_acoustic_params,
@@ -96,13 +97,20 @@ def _require_min_samples(n: int, min_samples: int, sample_rate: int, who: str):
         )
 
 
-def _run_subbatched(forward, max_b: int, *xs: torch.Tensor) -> torch.Tensor:
+def _run_subbatched(forward, max_b: int, *xs: torch.Tensor,
+                    name: str = "audiotoken.encode.forward") -> torch.Tensor:
     """``forward(*xs)`` in serial sub-batches of at most ``max_b`` rows,
-    joined on the device. Every row is encoded independently of the others."""
+    joined on the device, each ``forward`` in a trace span ``name``. Every
+    row is encoded independently of the others."""
     B = xs[0].shape[0]
     if B <= max_b:
-        return forward(*xs)
-    return torch.cat([forward(*(x[i : i + max_b] for x in xs)) for i in range(0, B, max_b)])
+        with span(name):
+            return forward(*xs)
+    outs = []
+    for i in range(0, B, max_b):
+        with span(name):
+            outs.append(forward(*(x[i : i + max_b] for x in xs)))
+    return torch.cat(outs)
 
 
 def _mask_to_lengths(attention_mask, audio_shape) -> np.ndarray:
@@ -137,10 +145,11 @@ def _h2d(x: np.ndarray, device: torch.device) -> torch.Tensor:
     behind the work already queued on the stream, so the host goes on to
     queue the next batch (a copy from pageable memory would wait for the
     device first). The pinned block is not reused before the copy is done."""
-    t = torch.from_numpy(np.ascontiguousarray(x))
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
+    with span("audiotoken.encode.upload"):
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if device.type != "cuda":
+            return t.to(device)
+        return t.pin_memory().to(device, non_blocking=True)
 
 
 def _run_rows(encoder, forward, *host: np.ndarray) -> torch.Tensor:
@@ -166,11 +175,22 @@ def _run_rows(encoder, forward, *host: np.ndarray) -> torch.Tensor:
         if B > mb and n < mb:  # one sub-batch shape: repeat the first row
             chunk = [np.concatenate([c, np.repeat(c[:1], mb - n, axis=0)]) for c in chunk]
         rows = chunk[0].shape[0] // dp.size
-        out = forward(*(_h2d(c[dp.index * rows:(dp.index + 1) * rows], dev) for c in chunk))
+        mine = [_h2d(c[dp.index * rows:(dp.index + 1) * rows], dev) for c in chunk]
+        with span("audiotoken.encode.forward"):
+            out = forward(*mine)
         # NCCL has no int16: the ids and codes are gathered as int32
         wide = out.int() if out.dtype == torch.int16 else out
         outs.append(all_gather(wide, dp, dim=0).to(out.dtype)[:n])
     return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
+def _download(out: torch.Tensor, n_frames: int, quantize: bool) -> np.ndarray:
+    """The semantic encoders' device ids [B, T'] (or features) -> host ids
+    [B, 1, n_frames] (features [B, n_frames, D]), waiting for the device."""
+    with span("audiotoken.encode.download"):
+        if not quantize:
+            return out[:, :n_frames].cpu().numpy()
+        return out[:, None, :n_frames].cpu().numpy()
 
 
 def _to_host(encoder, input_batch, attention_mask, who: str):
@@ -178,16 +198,17 @@ def _to_host(encoder, input_batch, attention_mask, who: str):
     its length checked against ``encoder._min_samples``, padded to a
     bucket, with its mask ([B] lengths where it can be) -> (audio, mask,
     samples per row)."""
-    audio = np.asarray(input_batch)
-    if audio.dtype != np.int16:
-        audio = audio.astype(np.float32)
-    n = audio.shape[-1]
-    _require_min_samples(n, encoder._min_samples, encoder.config.model_sample_rate, who)
-    padded = pad_to_bucket(audio, encoder.buckets, encoder.config.pad_token or 0)
-    mask = _mask_to_lengths(attention_mask, audio.shape)
-    if mask.ndim == 2:
-        mask = np.pad(mask, ((0, 0), (0, padded.shape[-1] - mask.shape[-1])))
-    return padded, mask, n
+    with span("audiotoken.encode.prepare"):
+        audio = np.asarray(input_batch)
+        if audio.dtype != np.int16:
+            audio = audio.astype(np.float32)
+        n = audio.shape[-1]
+        _require_min_samples(n, encoder._min_samples, encoder.config.model_sample_rate, who)
+        padded = pad_to_bucket(audio, encoder.buckets, encoder.config.pad_token or 0)
+        mask = _mask_to_lengths(attention_mask, audio.shape)
+        if mask.ndim == 2:
+            mask = np.pad(mask, ((0, 0), (0, padded.shape[-1] - mask.shape[-1])))
+        return padded, mask, n
 
 
 class AcousticEncoder:
@@ -248,18 +269,25 @@ class AcousticEncoder:
         ``attention_mask`` is accepted for the encoders' common signature
         and not used: the path is causal, so a row's codes over its valid
         prefix do not depend on what follows it."""
-        audio = np.asarray(input_batch)
-        if audio.dtype != np.int16:
-            audio = audio.astype(np.float32)
-        n = audio.shape[-1]
-        _require_min_samples(n, 1, self.config.model_sample_rate, "AcousticEncoder")
-        padded = pad_to_bucket(audio, self.buckets, self.config.pad_token or 0)
+        with span("audiotoken.encode"):
+            return self._dispatch(input_batch)
+
+    def _dispatch(self, input_batch):
+        with span("audiotoken.encode.prepare"):
+            audio = np.asarray(input_batch)
+            if audio.dtype != np.int16:
+                audio = audio.astype(np.float32)
+            n = audio.shape[-1]
+            _require_min_samples(n, 1, self.config.model_sample_rate, "AcousticEncoder")
+            padded = pad_to_bucket(audio, self.buckets, self.config.pad_token or 0)
         return _run_rows(self, self._forward, padded), math.ceil(n / self.hop)
 
     def __call__(self, input_batch: np.ndarray, attention_mask=None) -> np.ndarray:
         """[B, T] float32 (or int16 PCM) -> [B, num_q, ceil(T/hop)] int16."""
-        codes, n_frames = self.dispatch(input_batch, attention_mask)
-        return codes[:, :, :n_frames].cpu().numpy()
+        with span("audiotoken.encode"):
+            codes, n_frames = self._dispatch(input_batch)
+            with span("audiotoken.encode.download"):
+                return codes[:, :, :n_frames].cpu().numpy()
 
 
 class HubertEncoder:
@@ -364,20 +392,21 @@ class HubertEncoder:
 
         ``attention_mask`` may be [B] int lengths or a [B, T] mask: a
         valid-prefix mask is sent as lengths, any other mask whole."""
-        return self._run(input_batch, attention_mask, quantize=True)
+        with span("audiotoken.encode"):
+            return self._run(input_batch, attention_mask, quantize=True)
 
     def features(self, input_batch: np.ndarray, attention_mask=None):
         """Layer-11 features without quantising, left on the device and not
         waited for -> (features [B, T', 768] f32, n_valid_frames)."""
-        return self._run(input_batch, attention_mask, quantize=False)
+        with span("audiotoken.encode"):
+            return self._run(input_batch, attention_mask, quantize=False)
 
     def __call__(self, input_batch: np.ndarray, attention_mask=None) -> np.ndarray:
         """[B, T] float32 (normalised) or int16 PCM -> ids [B, 1, T'] int16,
         or, with ``quantize=False``, layer-11 features [B, T', 768] f32."""
-        out, n_frames = self._run(input_batch, attention_mask, quantize=self.quantize)
-        if not self.quantize:
-            return out[:, :n_frames].cpu().numpy()
-        return out[:, None, :n_frames].cpu().numpy()
+        with span("audiotoken.encode"):
+            out, n_frames = self._run(input_batch, attention_mask, quantize=self.quantize)
+            return _download(out, n_frames, self.quantize)
 
 
 class Wav2VecBertEncoder:
@@ -474,20 +503,21 @@ class Wav2VecBertEncoder:
 
         ``attention_mask`` may be [B] int lengths or a [B, T] mask: a
         valid-prefix mask is sent as lengths, any other mask whole."""
-        return self._run(input_batch, attention_mask, pad_to_multiple_of, quantize=True)
+        with span("audiotoken.encode"):
+            return self._run(input_batch, attention_mask, pad_to_multiple_of, quantize=True)
 
     def features(self, input_batch: np.ndarray, attention_mask=None,
                  pad_to_multiple_of: int = 2):
         """Conformer features without quantising, left on the device and not
         waited for -> (features [B, T', 1024] f32, n_valid_frames)."""
-        return self._run(input_batch, attention_mask, pad_to_multiple_of, quantize=False)
+        with span("audiotoken.encode"):
+            return self._run(input_batch, attention_mask, pad_to_multiple_of, quantize=False)
 
     def __call__(self, input_batch: np.ndarray, attention_mask=None,
                  pad_to_multiple_of: int = 2) -> np.ndarray:
         """[B, T] float32 (or int16 PCM) -> ids [B, 1, T'] int16, or, with
         ``quantize=False``, conformer features [B, T', 1024] float32."""
-        out, n_frames = self._run(input_batch, attention_mask, pad_to_multiple_of,
-                                  quantize=self.quantize)
-        if not self.quantize:
-            return out[:, :n_frames].cpu().numpy()
-        return out[:, None, :n_frames].cpu().numpy()
+        with span("audiotoken.encode"):
+            out, n_frames = self._run(input_batch, attention_mask, pad_to_multiple_of,
+                                      quantize=self.quantize)
+            return _download(out, n_frames, self.quantize)

@@ -59,6 +59,7 @@ from ..parallel.collectives import (
     vocab_embedding,
 )
 from ..parallel.mesh import Axis, check_mesh, single_axis
+from ..runtime.profiling import span
 
 
 @dataclass(frozen=True)
@@ -386,31 +387,34 @@ class GPTSampler:
         model, cfg, dev = self.model, self.cfg, self.device
         B, P = padded.shape
         nh, dh = model.n_head, cfg.n_embd // cfg.n_head
-        start = torch.from_numpy((P - lens).astype(np.int32)).to(dev)  # K6 reads int32
-        last_h, kv = model.prefill(torch.from_numpy(padded).long().to(dev), start.long())
-        dtype = last_h.dtype
-        k_cache = torch.empty((cfg.n_layer, B, nh, cache_len, dh), dtype=dtype, device=dev)
-        v_cache = torch.empty_like(k_cache)
-        for li, (k, v) in enumerate(kv):
-            k_cache[li, :, :, :P] = k
-            v_cache[li, :, :, :P] = v
-        del kv
-        logits = model.full_logits(last_h)
+        with span("audiotoken.decode.ar.prefill"):
+            start = torch.from_numpy((P - lens).astype(np.int32)).to(dev)  # K6 reads int32
+            last_h, kv = model.prefill(torch.from_numpy(padded).long().to(dev), start.long())
+            dtype = last_h.dtype
+            k_cache = torch.empty((cfg.n_layer, B, nh, cache_len, dh), dtype=dtype, device=dev)
+            v_cache = torch.empty_like(k_cache)
+            for li, (k, v) in enumerate(kv):
+                k_cache[li, :, :, :P] = k
+                v_cache[li, :, :, :P] = v
+            del kv
+            logits = model.full_logits(last_h)
         done_t = torch.from_numpy(done).to(dev)
         out = torch.full((B, n_new), -1, dtype=torch.int32, device=dev)
         weights = model.decode_weights()
         for i in range(n_new):
-            tok = _sample(logits, temperature, top_k, gen)
-            is_stop = tok == stop
-            out[:, i] = torch.where(done_t | is_stop, -1, tok).int()
-            done_t = done_t | is_stop
-            if i == n_new - 1:
-                break  # the last token's logits are not needed
-            if (i + 1) % self.DONE_CHECK_EVERY == 0 and bool(done_t.all()):
-                break  # every row has stopped: the rest stays -1
-            logits = model.decode_step(tok, P + i, start, k_cache, v_cache, weights)
-            self.decode_steps += 1
-        return out.cpu().numpy(), done_t.cpu().numpy()
+            with span("audiotoken.decode.ar.step"):
+                tok = _sample(logits, temperature, top_k, gen)
+                is_stop = tok == stop
+                out[:, i] = torch.where(done_t | is_stop, -1, tok).int()
+                done_t = done_t | is_stop
+                if i == n_new - 1:
+                    break  # the last token's logits are not needed
+                if (i + 1) % self.DONE_CHECK_EVERY == 0 and bool(done_t.all()):
+                    break  # every row has stopped: the rest stays -1
+                logits = model.decode_step(tok, P + i, start, k_cache, v_cache, weights)
+                self.decode_steps += 1
+        with span("audiotoken.decode.ar.readback"):
+            return out.cpu().numpy(), done_t.cpu().numpy()
 
 
 def _shard_model(model: GPT, mesh) -> GPT:

@@ -1,13 +1,17 @@
-"""Stage timers and trace capture.
+"""Stage timers, trace spans and trace capture.
 
 Counterpart of ``audiotoken_tpu/runtime/profiling.py``: named wall-clock
 spans that accumulate per stage (the corpus executor feeds them), and a
 ``torch.profiler`` trace around any block.
 
-On a CUDA device a span with ``sync=True``, and ``timed``, wait for the
-device with ``torch.cuda.synchronize`` so that the span covers the device
-work queued inside it. On the CPU there is nothing to wait for: the spans
-are host spans, and :meth:`StageTimers.summary` says so in ``clock``.
+On a CUDA device a :class:`StageTimers` span with ``sync=True`` waits for
+the device with ``torch.cuda.synchronize`` so that the span covers the
+device work queued inside it. On the CPU there is nothing to wait for: the
+spans are host spans, and :meth:`StageTimers.summary` says so in ``clock``.
+
+:func:`span` marks a step of the encoders and decoders (``audiotoken.*``)
+in a ``torch.profiler`` trace, on the profiler's clock beside the kernels
+and copies; while no profiler records it only reads the profiler's flag.
 """
 
 import contextlib
@@ -18,16 +22,29 @@ from typing import Dict, Optional
 
 import torch
 
+from torch.autograd import profiler as _autograd_profiler
+
 from ..logger import get_logger
 
 logger = get_logger(__name__)
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function(name)`` range while a profiler
+    records (on any thread), else a shared no-op context: no range is made
+    and nothing is waited for."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 class StageTimers:
     """Accumulating named wall-clock spans.
 
     ``device`` is where the timed work runs; a CUDA device makes ``sync``
-    spans and ``timed`` wait for it."""
+    spans wait for it."""
 
     def __init__(self, device="cpu"):
         self.device = torch.device(device)
@@ -55,12 +72,6 @@ class StageTimers:
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
 
-    def timed(self, name: str, value):
-        """Wait for the device work behind ``value`` and account the wait
-        under ``name``; returns ``value``."""
-        with self.span(name, sync=True):
-            return value
-
     def summary(self) -> Dict[str, dict]:
         return {
             k: {"total_s": round(v, 4), "count": self.counts[k],
@@ -77,7 +88,8 @@ class StageTimers:
 def profile_trace(logdir: Optional[str] = None):
     """Trace the block with ``torch.profiler`` (host and CUDA activity) and
     write a Chrome trace, ``trace.json``, into ``logdir``; a no-op when
-    ``logdir`` is None or empty."""
+    ``logdir`` is None or empty. The trace holds the encoders' and
+    decoders' ``audiotoken.*`` spans (:func:`span`) beside the kernels."""
     if not logdir:
         yield
         return

@@ -31,6 +31,7 @@ from audiotoken_tpu_torch.io.wavfile import write_wav
 from audiotoken_tpu_torch.nn.bark_fine import BarkFineConfig
 from audiotoken_tpu_torch.nn.gpt import GPTConfig
 from test_torch_offline import offline
+from test_torch_spans import program_spans
 
 VOCAB = SemanticDecoderConfig().vocab.vocab_size
 GPT_TINY = dict(block_size=512, vocab_size=VOCAB, n_layer=1, n_head=2, n_embd=32)
@@ -195,6 +196,66 @@ def test_api_decode_int16_is_the_float_path(tiny_weights, tmp_path):
     write_wav(str(tmp_path / "f.wav"), np.clip(f, -0.99, 0.99), 24_000)
     write_wav(str(tmp_path / "i.wav"), i, 24_000)
     assert (tmp_path / "f.wav").read_bytes() == (tmp_path / "i.wav").read_bytes()
+
+
+def test_semantic_decode_spans(tiny_weights):
+    """Under ``torch.profiler`` a semantic decode call records its stages'
+    spans (``runtime/profiling.py:span``), the AR loop a span a step."""
+    at = AudioToken(Tokenizers.semantic_m, weights="random", device="cpu")
+    at.load_decoder(max_new_tokens=12, top_k=1, **F32)
+    got = [(n[len("audiotoken.decode"):], p and p[len("audiotoken.decode"):])
+           for n, p in program_spans(lambda: at.decode_batch(_sources(5, (10, 7))))]
+    steps = sum(n == ".ar.step" for n, _ in got)
+    assert 1 <= steps <= 12  # a step a token drawn, until every row has stopped
+    assert got == ([("", None), (".ar", ""), (".ar.prefill", ".ar")] + [(".ar.step", ".ar")] * steps
+                   + [(".ar.readback", ".ar"), (".fine", ""), (".acoustic", ""),
+                      (".upload", ".acoustic"), (".forward", ".acoustic"),
+                      (".download", ".acoustic")])
+
+
+def test_rows_of_different_lengths_reach_the_acoustic_stage(tiny_weights):
+    """Past a shorter row, the fine stage leaves Bark's filler id (1024),
+    which no codebook has: the EnCodec stage decodes each row to its own
+    length as decoded alone, and leaves the codes it was given as they
+    were."""
+    dec = Wav2VecBertDecoder(weights="random", device="cpu", max_new_tokens=8)
+    fine = np.random.default_rng(8).integers(0, 1024, size=(2, 8, 30)).astype(np.int32)
+    fine[1, :, 20:] = 1024
+    given = fine.copy()
+    wavs = dec._acoustic_stage(fine, [30, 20])
+    np.testing.assert_array_equal(fine, given)
+    assert [w.shape for w in wavs] == [(1, 9600), (1, 6400)]
+    alone = dec._acoustic_stage(fine[1:, :, :20], [20])[0]
+    # equal but for the order of f32 sums in a batch of one and of two
+    np.testing.assert_allclose(wavs[1], alone, rtol=0, atol=REL * np.abs(alone).max())
+
+
+def test_rows_of_different_lengths_match_jax(tiny_weights):
+    """Coarse rows of 30 and 20 frames through both packages' fine and
+    acoustic stages, greedy: past the shorter row Bark's filler id (1024)
+    reaches the acoustic stage, which the JAX package's codebook gather
+    clamps and the port replaces by code 0. Trimmed to each row's length,
+    the waveforms agree, since the decoder is causal."""
+    kw = dict(weights="random", max_new_tokens=8, top_k=1, **F32)
+    port = _argmax_fine(Wav2VecBertDecoder(device="cpu", **kw))
+    ref = _argmax_fine(JaxWav2VecBertDecoder(**kw))
+    rng = np.random.default_rng(9)
+    rows = [rng.integers(0, 1024, size=(2, n)) for n in (30, 20)]
+    given = []
+    acoustic = port._acoustic_stage
+
+    def keep(fine, lens):
+        given.append(np.array(fine))
+        out = acoustic(fine, lens)
+        np.testing.assert_array_equal(fine, given[0])  # left as it was given
+        return out
+
+    port._acoustic_stage = keep
+    wavs, refs = port._finish_stage(rows, 0), ref._finish_stage(rows, 0)
+    assert (given[0][1, :2, 20:] == 1024).all()  # the filler reached the acoustic stage
+    assert [w.shape for w in wavs] == [r.shape for r in refs] == [(1, 9600), (1, 6400)]
+    for w, r in zip(wavs, refs):
+        np.testing.assert_allclose(w, r, rtol=0, atol=REL * np.abs(r).max())
 
 
 def test_refusals(tiny_weights):

@@ -226,13 +226,11 @@ def test_stage_timers_on_the_cpu():
     for _ in range(3):
         with timers.span("encode", sync=True):
             torch.ones(64).sum()
-    x = torch.arange(4)
-    assert timers.timed("d2h", x) is x
     with pytest.raises(KeyError):
         with timers.span("failing"):
             raise KeyError("still counted")
     s = timers.summary()
-    assert list(s) == ["d2h", "encode", "failing"]
+    assert list(s) == ["encode", "failing"]
     assert s["encode"]["count"] == 3 and s["encode"]["clock"] == "host"
     assert s["encode"]["total_s"] >= 0 and s["failing"]["count"] == 1
     timers.log()
