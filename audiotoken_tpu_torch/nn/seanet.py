@@ -8,7 +8,12 @@ the LSTM.
 
 The encoder's front (conv_in plus the first residual block, at the full
 sample rate) is kernel K1 and the LSTM recurrence, in both directions, is
-kernel K2; on a CPU tensor both run their plain PyTorch versions. The numpy initialisers make the same
+kernel K2; on a CPU tensor both run their plain PyTorch versions. Every
+other conv takes its input from ``elu_pad``, one pass that adds the
+residual, applies the ELU and reflect-pads (the kernel of
+``csrc/elu_pad.cu`` on a CUDA tensor), and a residual block hands its
+two terms on unsummed, for the next conv's ``elu_pad`` to add. A 1x1 conv
+reads its input as it is. The numpy initialisers make the same
 draws, in the same order, as the JAX package's, so ``weights="random"``
 gives both packages bit-identical parameters.
 """
@@ -21,7 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv import conv1d, conv_transpose1d
+from ..ops.conv import conv_transpose1d, pad_amounts
+from ..ops.elu_pad import elu_pad
 from ..ops.lstm import lstm_skip
 from ..ops.seanet_front import seanet_front
 
@@ -55,7 +61,10 @@ class SeanetConfig:
 
 
 class SConv1d(nn.Module):
-    """EnCodec causal conv; weight [C_out, C_in, K] (weight norm folded)."""
+    """EnCodec causal conv; weight [C_out, C_in, K] (weight norm folded).
+
+    ``m(x, residual=r, elu=True)`` convolves ``ELU(x + r)`` under the
+    causal reflect padding; the residual and the ELU are optional."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1,
                  dilation: int = 1):
@@ -64,12 +73,27 @@ class SConv1d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
         self.stride, self.dilation = stride, dilation
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv1d(x, self.weight, self.bias, stride=self.stride, dilation=self.dilation)
+    def pads(self, length: int) -> Tuple[int, int]:
+        """(left, right) reflect padding of an input of ``length`` samples."""
+        return pad_amounts(length, self.weight.shape[-1], self.stride, self.dilation, causal=True)
+
+    def forward(self, x: torch.Tensor, residual=None, elu: bool = False) -> torch.Tensor:
+        left, right = self.pads(x.shape[-1])
+        if residual is not None or elu or left or right:
+            x = elu_pad(x, left, right, residual=residual, elu=elu)
+        return self.conv(x)
+
+    def conv(self, x: torch.Tensor) -> torch.Tensor:
+        """This conv of an input padded already."""
+        return F.conv1d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), stride=self.stride,
+                        dilation=self.dilation)
 
 
 class ResnetBlock(nn.Module):
-    """ELU -> conv(k, dilation) -> ELU -> conv(1), plus a 1x1 conv shortcut."""
+    """ELU -> conv(k, dilation) -> ELU -> conv(1), plus a 1x1 conv shortcut.
+
+    Takes its input as two terms, x + residual, and returns its own two,
+    shortcut and conv2's, unsummed: the consumer's ``elu_pad`` adds them."""
 
     def __init__(self, cfg: SeanetConfig, dim: int, dilation: int):
         super().__init__()
@@ -78,8 +102,14 @@ class ResnetBlock(nn.Module):
         self.conv2 = SConv1d(hidden, dim, 1)
         self.shortcut = SConv1d(dim, dim, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.shortcut(x) + self.conv2(F.elu(self.conv1(F.elu(x))))
+    def forward(self, x: torch.Tensor, residual=None):
+        # x + residual is written out only where the shortcut needs it: a
+        # sum, or a strided view (a transposed conv's trimmed output).
+        # conv1 goes first, so that its padded input is freed before the
+        # shortcut's output is allocated.
+        h, x = elu_pad(x, *self.conv1.pads(x.shape[-1]), residual=residual, keep_input=True)
+        h = self.conv1.conv(h)
+        return self.shortcut(x), self.conv2(h, elu=True)
 
 
 class EncoderStage(nn.Module):
@@ -136,22 +166,24 @@ class SeanetEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # The kernels compute in f32; under a bf16 policy the plain convs
-        # run on bf16 operands (conv1d casts the weights to x's dtype).
+        # run on bf16 operands (SConv1d.conv casts the weights to x's dtype).
         dtype = x.dtype
-        h = seanet_front(x.float(), *self.front_weights()).to(dtype)  # [B, 32, T]
+        h, r = seanet_front(x.float(), *self.front_weights()).to(dtype), None  # [B, 32, T]
         for si, stage in enumerate(self.stages):
             if si > 0:
                 for res in stage.res:
-                    h = res(h)
-            h = stage.down(F.elu(h))
+                    h, r = res(h, r)
+            h, r = stage.down(h, residual=r, elu=True), None
         layers = [(l.wih, l.whh, l.bih, l.bhh) for l in self.lstm]
         h = lstm_skip(layers, h.transpose(1, 2).float()).to(dtype)  # [B, T', C]
-        h = self.conv_out(F.elu(h).transpose(1, 2))
+        h = self.conv_out(h.transpose(1, 2), elu=True)
         return h.transpose(1, 2)  # [B, T', dimension]
 
 
 class SConvTranspose1d(nn.Module):
-    """EnCodec causal transposed conv; weight [C_in, C_out, K]."""
+    """EnCodec causal transposed conv; weight [C_in, C_out, K]. In SEANet's
+    decoder each one follows an ELU: ``up(x, residual=r)`` convolves
+    ``ELU(x + r)``, the residual optional."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int, stride: int,
                  trim_right_ratio: float):
@@ -160,7 +192,8 @@ class SConvTranspose1d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
         self.stride, self.trim_right_ratio = stride, trim_right_ratio
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual=None) -> torch.Tensor:
+        x = elu_pad(x, 0, 0, residual=residual)
         return conv_transpose1d(x, self.weight, self.bias, self.stride, self.trim_right_ratio)
 
 
@@ -204,11 +237,12 @@ class SeanetDecoder(nn.Module):
         h = self.conv_in(z.transpose(1, 2))  # [B, 512, T']
         layers = [(l.wih, l.whh, l.bih, l.bhh) for l in self.lstm]
         h = lstm_skip(layers, h.transpose(1, 2).float()).to(dtype).transpose(1, 2)
+        r = None
         for stage in self.stages:
-            h = stage.up(F.elu(h))
+            h, r = stage.up(h, residual=r), None
             for res in stage.res:
-                h = res(h)
-        return self.conv_out(F.elu(h))[:, 0, :]  # [B, T' * hop]
+                h, r = res(h, r)
+        return self.conv_out(h, residual=r, elu=True)[:, 0, :]  # [B, T' * hop]
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "seanet_front_f32": (_P, _P, _I, _I) + (_P,) * 8,
     "seanet_front_elu_mismatches": (_P,),
+    **{f"elu_pad_{t}": (_P,) * 4 + (_I,) * 9 for t in ("f32", "bf16")},
     "lstm_layer_f32": (_P, _P, _P, _P, _I, _I),
     "rvq_encode_f32": (_P,) * 4 + (_I,) * 4,
     **{f"flash_attention_relkey_{t}": (_P,) * 6 + (_I,) * 5 for t in ("f32", "f32_1pass", "bf16")},

@@ -14,10 +14,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
      K2 at B=8 and B=32 x 2250 steps, each against its plain version and
      cuDNN's 2-layer ``nn.LSTM`` in the same run, with microseconds a step;
      K3 at B=8, 1 and 32 x 30 s, with its bounds in 3xTF32 and as f32 FMAs;
+  3a. ``elu_pad`` (every SEANet conv's input after K1: residual add, ELU and
+     causal reflect pad in one pass, ``csrc/elu_pad.cu``): its ELU against
+     ATen's on all 2^32 floats and its bf16 add and ELU on all 2^32 pairs of
+     bf16 values, then every launch of one acoustic encoder and one decoder
+     forward at B=32 x 30 s (``ELU_PAD_LAUNCHES``: the transposed convs'
+     trimmed views and the LSTM's transposed output as the forwards give
+     them) bit for bit against its plain twin, each timed beside the twin
+     with its bytes over 3.35 TB/s, and the encoder's two largest in bf16;
   4. the main path through the entry points a user calls: ``AudioToken``
      encode of WAV files (one of 90 s, in 30 s chunks), then
      ``AcousticEncoder`` at 8 and 32 x 30 s of int16 PCM, with real-time
-     factors; every kernel must have launched during this phase;
+     factors; every kernel must have launched during this phase, and
+     ``elu_pad`` 11 times a forward;
   5. the golden gate: ``tests/goldens/battery_acoustic.npz`` (4 weight
      seeds x 12 cases) and ``api_acoustic.npz`` under the acoustic contract
      of ``scripts/verify_tpu_parity.py``;
@@ -53,7 +62,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      .decode_batch`` of 8 sources of 250 ids at the defaults (bf16,
      sampled, 1024 new tokens), with wall time, real-time factor and AR
      tokens/s; K6 and each K7 entry launch 12 times per decode step, K5 24
-     times per Bark-fine pass, and K2 runs in the acoustic decoder;
+     times per Bark-fine pass, and K2 runs in the acoustic decoder, and
+     ``elu_pad`` 14 times a forward of it;
   4f. ``decode_batch(..., pipeline_batch=8)`` of 16 sources of 250 ids
      against two serial calls of 8 with the chunk seeds, in turns: AR
      tokens and fine codes equal in every run, the fine stage on a CUDA
@@ -278,6 +288,8 @@ from audiotoken_tpu_torch.ops.decode_step import (  # noqa: E402
     decode_qkv,
     decode_qkv_plain,
 )
+from audiotoken_tpu_torch.ops.elu_pad import elu_pad, elu_pad_plain  # noqa: E402
+from audiotoken_tpu_torch.ops.elu_pad import elu_mismatches as elu_pad_mismatches  # noqa: E402
 from audiotoken_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_plain,
     flash_attention_relkey,
@@ -313,13 +325,49 @@ SR = 24_000
 SR_M = 16_000  # semantic_m
 KERNEL_ATOL = 1e-4  # K1, K2, K4: kernel vs plain in f32 (K4 in 3xTF32), other sum order
 RVQ_AGREEMENT = 0.999  # K3: late-codebook near-ties may flip (RVQ contract)
-ACOUSTIC_KERNELS = (seanet_front, lstm_layer, rvq_encode)
+ACOUSTIC_KERNELS = (seanet_front, lstm_layer, rvq_encode, elu_pad)
 DECODE_KERNELS = (flash_attention_plain, decode_attention, decode_qkv, decode_ffn)
 # decode_ffn_tp, K7's tensor-parallel entry, runs on phase 7's tp=2 sampler
 # flash_attention_relkey_bf16, K4's bf16 form, runs on the public op's bf16 input (3f)
 KERNELS = (ACOUSTIC_KERNELS + (flash_attention_relkey,) + DECODE_KERNELS
            + (decode_ffn_tp, flash_attention_relkey_bf16))
 W2V_BLOCKS = 19  # conformer blocks a semantic_m forward runs, one K4 launch each
+# Every elu_pad launch of one SEANet forward at B=32 x 30 s, in its order:
+# (channels, samples, layout, (left, right), residual, elu, keep_input).
+# layout: 0 a contiguous x; k > 0 a transposed conv's output with k samples
+# trimmed off each row's right (rows of samples + k); None the LSTM's
+# [B, T, C] output seen as [B, C, T].
+ELU_PAD_LAUNCHES = {
+    "encoder": [
+        (32, 720000, 0, (2, 0), False, True, False),  # stage 1's down conv, after K1
+        (64, 360000, 0, (2, 0), False, True, True),   # stage 2: conv1
+        (32, 360000, 0, (0, 0), False, True, False),  # conv2
+        (64, 360000, 0, (4, 0), True, True, False),   # down conv, the block's sum
+        (128, 90000, 0, (2, 0), False, True, True),   # stage 3
+        (64, 90000, 0, (0, 0), False, True, False),
+        (128, 90000, 0, (5, 0), True, True, False),
+        (256, 18000, 0, (2, 0), False, True, True),   # stage 4
+        (128, 18000, 0, (0, 0), False, True, False),
+        (256, 18000, 0, (8, 0), True, True, False),
+        (512, 2250, 0, (6, 0), False, True, False),   # conv_out, after the LSTM
+    ],
+    "decoder": [
+        (128, 2250, None, (6, 0), False, False, False),  # conv_in on the latents
+        (512, 2250, 0, (0, 0), False, True, False),      # stage 1: the transposed conv
+        (256, 18000, 8, (2, 0), False, True, True),      # conv1, on its trimmed output
+        (128, 18000, 0, (0, 0), False, True, False),     # conv2
+        (256, 18000, 0, (0, 0), True, True, False),      # stage 2: the block's sum
+        (128, 90000, 5, (2, 0), False, True, True),
+        (64, 90000, 0, (0, 0), False, True, False),
+        (128, 90000, 0, (0, 0), True, True, False),      # stage 3
+        (64, 360000, 4, (2, 0), False, True, True),
+        (32, 360000, 0, (0, 0), False, True, False),
+        (64, 360000, 0, (0, 0), True, True, False),      # stage 4
+        (32, 720000, 2, (2, 0), False, True, True),
+        (16, 720000, 0, (0, 0), False, True, False),
+        (32, 720000, 0, (6, 0), True, True, False),      # conv_out
+    ],
+}
 HUBERT_LAYERS = 11  # layers a semantic_s forward runs, one K4 launch each ("flash")
 GPT_LAYERS, FINE_LAYERS = 12, 24  # K6/K7 launches per decode step, K5 per fine pass
 PIPE_NEW_TOKENS = 512  # 4f's AR tokens a row: half the default, to keep the script's time
@@ -635,6 +683,84 @@ def phase3_kernels(dev):
     return res
 
 
+def _elu_pad_input(dev, B, C, T, layout, dtype, seed):
+    """x [B, C, T] of ``dtype`` in an ``ELU_PAD_LAUNCHES`` layout, from ``seed``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if layout is None:
+        return torch.randn((B, T, C), generator=g, device=dev).to(dtype).transpose(1, 2)
+    return torch.randn((B, C, T + layout), generator=g, device=dev).to(dtype)[..., :T]
+
+
+def phase3a_elu_pad(dev, B=32):
+    """elu_pad against ATen on every input of its ELU (and bf16 add), then
+    every launch of one acoustic encoder and one decoder forward at
+    ``B`` x 30 s, in f32 and in bf16, bit for bit against its plain twin
+    and timed beside it, with its bytes (x and the residual read once, out
+    and the kept input written once) over 3.35 TB/s. The kernels line
+    reports the f32 forms: ``ms``, ``plain_ms`` and ``bound_ms`` of the
+    encoder's largest launch, ``*_decoder`` of the decoder's, and
+    ``*_forward_encoder`` / ``*_forward_decoder`` summed over a forward."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    bad = {dt: elu_pad_mismatches(dev, dt) for dt in (f32, bf16)}
+    say(f"[3a] elu_pad against ATen, bit for bit: its ELU on all 2^32 floats, {bad[f32]} "
+        f"differ; its bf16 add and ELU on all 2^32 pairs of bf16 values, {bad[bf16]} differ")
+    if any(bad.values()):
+        raise AssertionError(f"elu_pad differs from ATen on {bad[f32]} floats and "
+                             f"{bad[bf16]} bf16 pairs")
+    res = {"max_abs_err": 0.0, "library_ms": None, "elu_mismatches": bad[f32],
+           "elu_mismatches_bf16": bad[bf16]}
+    for dt, tag in ((f32, ""), (bf16, "_bf16")):
+        for model, launches in ELU_PAD_LAUNCHES.items():
+            say(f"[3a] elu_pad {tag[1:] or 'f32'}: every launch of one acoustic {model} forward "
+                f"at B={B}: shape, pads, residual, elu, keep written; GB, kernel ms, share of "
+                f"3.35 TB/s, twin ms")
+            total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0}
+            largest = None
+            for i, (C, T, layout, (left, right), has_res, elu, keep) in enumerate(launches):
+                x = _elu_pad_input(dev, B, C, T, layout, dt, 2 * i)
+                r = _elu_pad_input(dev, B, C, T, 0, dt, 2 * i + 1) if has_res else None
+                n0 = elu_pad.launches
+                out = elu_pad(x, left, right, residual=r, elu=elu, keep_input=True)
+                ref = elu_pad_plain(x, left, right, r, elu, keep_input=True)
+                torch.cuda.synchronize()
+                if elu_pad.launches != n0 + 1:
+                    raise AssertionError(f"elu_pad launched {elu_pad.launches - n0} times")
+                if not (torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])):
+                    raise AssertionError(f"elu_pad {dt} differs from its twin at {model} "
+                                         f"launch {i}: [{B}, {C}, {T}], pads ({left}, {right})")
+                written = keep and out[1] is not x
+                moved = x.element_size() * B * C * (T * (1 + has_res + written) + T + left
+                                                    + right)
+                del out, ref
+                ms = cuda_ms(lambda: elu_pad(x, left, right, r, elu, keep))
+                plain_ms = cuda_ms(lambda: elu_pad_plain(x, left, right, r, elu, keep))
+                b = bound(0, moved, "f32")
+                say(f"[3a]   {str([B, C, T]):16s} ({left}, {right}) {int(has_res)} {int(elu)} "
+                    f"{int(written)}{' strided' if layout != 0 else ''}: {moved / 1e9:.3f} GB  "
+                    f"kernel {ms:.4f} ms  {100 * b['bound_ms'] / ms:.1f} %  twin {plain_ms:.4f} ms")
+                for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b["bound_ms"]),
+                             ("bytes", moved)):
+                    total[k] += v
+                if largest is None or moved >= largest[3]:
+                    largest = (ms, plain_ms, b, moved)
+                del x, r
+            ms, plain_ms, b, moved = largest
+            say(f"[3a] elu_pad {tag[1:] or 'f32'} {model}: largest launch {moved / 1e9:.3f} GB in "
+                f"{ms:.4f} ms ({100 * b['bound_ms'] / ms:.1f} % of 3.35 TB/s, twin "
+                f"{plain_ms:.4f} ms); the forward's {len(launches)} launches "
+                f"{total['bytes'] / 1e9:.3f} GB in {total['ms']:.4f} ms "
+                f"({100 * total['bound_ms'] / total['ms']:.1f} %, twin {total['plain_ms']:.4f} ms)")
+            if model == "encoder" and dt == f32:
+                res.update(ms=ms, plain_ms=plain_ms, **b)
+            else:
+                res.update({f"ms_{model}{tag}": ms, f"plain_ms_{model}{tag}": plain_ms,
+                            f"bound_ms_{model}{tag}": b["bound_ms"]})
+            res.update({f"{k}_forward_{model}{tag}": total[k]
+                        for k in ("ms", "plain_ms", "bound_ms")})
+    torch.cuda.empty_cache()
+    return {"elu_pad": res}
+
+
 def _check_codes(codes, shape):
     if codes.shape != shape or codes.dtype != np.int16:
         raise AssertionError(f"codes {codes.shape} {codes.dtype}, expected {shape} int16")
@@ -682,7 +808,21 @@ def phase4_main_path(dev, tmp):
     for name, n in counts.items():
         if n < 1:
             raise AssertionError(f"kernel {name} was not launched by the main path")
+    _check_elu_pad_launches("[4]", "encoder", lambda B: enc(pcm30[:B]))
     return counts, rtfx
+
+
+def _check_elu_pad_launches(tag, model, forward):
+    """One forward at B=8 and one at 32, each with elu_pad's count reset
+    just before: one launch for each entry of ``ELU_PAD_LAUNCHES[model]``."""
+    want = len(ELU_PAD_LAUNCHES[model])
+    for B in (8, 32):
+        elu_pad.launches = 0
+        forward(B)
+        if elu_pad.launches != want:
+            raise AssertionError(f"elu_pad launched {elu_pad.launches} times in an acoustic "
+                                 f"{model} forward at B={B}, expected {want}")
+    say(f"{tag} elu_pad: {want} launches an acoustic {model} forward at B=8 and at 32")
 
 
 def phase5_goldens(dev, tmp, keep):
@@ -1130,6 +1270,8 @@ def phase4c_decode(dev):
     if lstm_layer.launches < 2 * 7:
         raise AssertionError(f"K2 launched {lstm_layer.launches} times in the acoustic decoder")
     k2 = lstm_layer.launches
+    elu_pad_n = elu_pad.launches
+    _check_elu_pad_launches("[4c]", "decoder", lambda B: dec.forward_codes(codes30[:B]))
     del at, dec
     torch.cuda.empty_cache()
 
@@ -1193,7 +1335,7 @@ def phase4c_decode(dev):
     if counts["flash_attention_plain"] < FINE_LAYERS * passes or passes < 1:
         raise AssertionError(f"K5 launched {counts['flash_attention_plain']} times "
                              f"in {passes} passes")
-    counts["lstm_layer"] = k2
+    counts["lstm_layer"], counts["elu_pad"] = k2, elu_pad_n
     phase4f_pipeline(dev, sem)
     del at, sem
     torch.cuda.empty_cache()
@@ -2837,6 +2979,7 @@ def main():
     phase2_build()
     with get_policy("highest").numerics():
         res = phase3_kernels(dev)
+        res.update(phase3a_elu_pad(dev))
         res.update(phase3b_flash_attention(dev))
         res.update(phase3c_decode_kernels(dev))
         k8, k8_counts = phase3d_attn_ablation(dev)
@@ -2876,7 +3019,8 @@ def main():
         counts["decode_ffn_tp"] = phase7_mesh(dev, tmp, ids_s0, m8, loss_hi, c)
     decode_counts = phase4c_decode(dev)
     counts["flash_attention_plain_f32_1pass"] = phase5c_decode_goldens(dev)
-    say(f"[4c] K2 launches in the acoustic decoder: {decode_counts.pop('lstm_layer')}")
+    say(f"[4c] K2 launches in the acoustic decoder: {decode_counts.pop('lstm_layer')}; "
+        f"elu_pad: {decode_counts.pop('elu_pad')}")
     counts.update(decode_counts)
     counts.update(k4_bf16_counts)
     rows = [
@@ -2886,6 +3030,9 @@ def main():
          "audiotoken_tpu/ops/lstm_pallas.py:75"),
         ("rvq", "rvq_encode", "audiotoken_tpu_torch/csrc/rvq.cu",
          "audiotoken_tpu/ops/rvq_pallas.py:74"),
+        # no TPU kernel: XLA fuses the ELU and the pad into each conv's operand
+        ("elu_pad", "elu_pad", "audiotoken_tpu_torch/csrc/elu_pad.cu",
+         "audiotoken_tpu/nn/seanet.py:119"),
         ("flash_attention_relkey", "flash_attention_relkey",
          "audiotoken_tpu_torch/csrc/flash_attention.cu",
          "audiotoken_tpu/ops/flash_attention.py:519"),

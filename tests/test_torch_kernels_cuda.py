@@ -13,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from audiotoken_tpu_torch.decoders import AcousticDecoder
 from audiotoken_tpu_torch.encoders import AcousticEncoder, Wav2VecBertEncoder
 from audiotoken_tpu_torch.nn.rvq import RVQConfig, init_codebooks
 from audiotoken_tpu_torch.nn.seanet import SeanetConfig, SeanetEncoder, init_encoder_params
 from audiotoken_tpu_torch.ops import rvq as rvq_ops
+from audiotoken_tpu_torch.ops.elu_pad import elu_pad, elu_pad_plain
 from audiotoken_tpu_torch.ops.flash_attention import (
     flash_attention_relkey,
     flash_attention_relkey_plain,
@@ -26,6 +28,7 @@ from audiotoken_tpu_torch.ops.rvq import rvq_encode, rvq_encode_plain
 from audiotoken_tpu_torch.ops.seanet_front import seanet_front, seanet_front_plain
 from audiotoken_tpu_torch.runtime.precision import get_policy
 from audiotoken_tpu_torch.weights import acoustic_from_numpy
+from torch_seanet_chain import decoder_chain, encoder_chain
 
 pytestmark = pytest.mark.cuda
 
@@ -210,6 +213,152 @@ def test_encoder_runs_the_kernels(dev):
     assert rvq_encode.launches > counts[2]
     ref = AcousticEncoder(weights="random", seed=0, device="cpu")(x)
     assert (codes == ref).mean() >= 0.99
+
+
+def _gauss(dev, shape, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev)
+
+
+# (B, C, T), (left, right), residual: the two acoustic cells' largest
+# launches, odd lengths, short rows (zero-extended) and the bare pad
+ELU_PAD_CASES = [
+    ((32, 64, 360000), (2, 0), False),  # encoder stage 2's conv1
+    ((32, 64, 360000), (4, 0), True),   # encoder stage 2's down conv
+    ((32, 32, 720000), (2, 0), False),  # encoder stage 1's down conv, after K1
+    ((32, 32, 720000), (6, 0), True),   # decoder conv_out
+    ((3, 5, 1001), (5, 4), True),
+    ((2, 7, 13), (8, 7), True),
+    ((33, 3, 4099), (0, 0), True),
+    ((2, 3, 1), (8, 7), True),
+    ((2, 3, 5), (6, 0), False),
+    ((1, 1, 3), (2, 1), True),
+]
+
+
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("elu", [True, False], ids=["elu", "bare"])
+@pytest.mark.parametrize("shape,pads,res", ELU_PAD_CASES)
+def test_elu_pad_matches_plain(dev, shape, pads, res, elu, dtype):
+    """Bit for bit: the add (rounded to bf16 in bf16, as the chain's sum
+    is) and ATen's ELU are exact per sample, and the pad only moves
+    samples."""
+    x = _gauss(dev, shape, 1).to(DTYPES[dtype])
+    r = _gauss(dev, shape, 2).to(DTYPES[dtype]) if res else None
+    before = elu_pad.launches
+    out, kept = elu_pad(x, *pads, residual=r, elu=elu, keep_input=True)
+    torch.cuda.synchronize()
+    assert elu_pad.launches == before + 1
+    ref, ref_kept = elu_pad_plain(x, *pads, r, elu, keep_input=True)
+    assert out.shape == ref.shape and out.is_contiguous() and out.dtype == x.dtype
+    assert torch.equal(out, ref)
+    assert torch.equal(kept, ref_kept) and (kept is x) == (not res)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("layout", ["trimmed", "transposed"])
+def test_elu_pad_reads_strided_views(dev, layout, offset, dtype):
+    """x a view into a NaN-filled buffer at every element offset from the
+    kernel's grid of vectors: a transposed conv's trimmed output (rows of
+    T + 8 elements), or an LSTM's [B, T, C] output seen as [B, C, T]. No
+    NaN may reach out or keep, and keep is x written contiguous."""
+    B, C, T = 4, 32, 90001
+    dt = DTYPES[dtype]
+    if layout == "trimmed":
+        buf = torch.full((B * C * (T + 8) + 8,), float("nan"), device=dev, dtype=dt)
+        x = buf.as_strided((B, C, T), (C * (T + 8), T + 8, 1), offset)
+    else:
+        C, T = 512, 2251
+        buf = torch.full((B * T * C + 8,), float("nan"), device=dev, dtype=dt)
+        x = buf.as_strided((B, C, T), (T * C, 1, C), offset)
+    x.copy_(_gauss(dev, (B, C, T), 3))
+    for pads in ((2, 0), (6, 0), (0, 0)):
+        out, kept = elu_pad(x, *pads, keep_input=True)
+        ref = elu_pad_plain(x, *pads)
+        assert torch.equal(out, ref), pads
+        assert kept.is_contiguous() and torch.equal(kept, x)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_elu_pad_elu_is_atens(dev, dtype):
+    """In f32 the kernel's ELU against ATen's F.elu on all 2^32 floats; in
+    bf16 its add and ELU against F.elu(x + r) on all 2^32 pairs."""
+    from audiotoken_tpu_torch.ops.elu_pad import elu_mismatches
+
+    assert elu_mismatches(dev, DTYPES[dtype]) == 0
+
+
+def test_elu_pad_refuses_other_dtypes(dev):
+    """A CUDA tensor the kernel does not take raises; none runs the chain."""
+    x = _gauss(dev, (2, 8, 1001), 4).half()
+    before = elu_pad.launches
+    with pytest.raises(ValueError, match="dtype"):
+        elu_pad(x, 6, 0)
+    assert elu_pad.launches == before
+
+
+def test_seanet_launches_elu_pad_before_each_conv(dev):
+    """11 launches a SeanetEncoder forward (the stage-1 down conv after K1;
+    conv1, conv2 and the down conv of stages 2-4; conv_out) and 14 a
+    SeanetDecoder forward (conv_in; the transposed conv, conv1 and conv2 of
+    4 stages; conv_out)."""
+    enc = AcousticEncoder(weights="random", seed=0, device=dev).seanet
+    dec = AcousticDecoder(weights="random", seed=0, device=dev).seanet
+    with torch.inference_mode():
+        before = elu_pad.launches
+        enc(_gauss(dev, (2, 24000), 6) * 0.3)
+        assert elu_pad.launches == before + 11
+        dec(_gauss(dev, (2, 75, 128), 7))
+        assert elu_pad.launches == before + 25
+
+
+def test_acoustic_codes_equal_the_old_chain(dev):
+    """Seeded 30 s PCM at B=32: the latents and codes of AcousticEncoder,
+    and SeanetDecoder's waveform of 32 x 2250 latents, equal the chain of
+    separate ELU, add and pad passes that ran before elu_pad, bit for bit."""
+    enc = AcousticEncoder(weights="random", seed=0, device=dev)
+    pcm = torch.from_numpy(
+        (np.random.default_rng(8).standard_normal((32, 720000)) * 3000).clip(-32768, 32767)
+        .astype(np.int16)).to(dev)
+    audio = pcm.float() * (1.0 / 32768.0)
+    with torch.inference_mode(), enc.policy.numerics():
+        z, z_ref = enc.seanet(audio), encoder_chain(enc.seanet, audio)
+        assert torch.equal(z, z_ref)
+        codes = enc._forward(pcm)
+        assert torch.equal(codes, enc.quantizer(z_ref).to(torch.int16))
+    del z, z_ref, audio
+    dec = AcousticDecoder(weights="random", seed=0, device=dev)
+    lat = _gauss(dev, (32, 2250, 128), 9)
+    with torch.inference_mode(), dec.policy.numerics():
+        assert torch.equal(dec.seanet(lat), decoder_chain(dec.seanet, lat))
+
+
+def test_acoustic_bf16_equals_the_old_chain(dev):
+    """Under the bfloat16 policy the convs run on bf16 operands and elu_pad
+    in bf16: the encoder's latents of seeded 30 s PCM at B=8, and the
+    decoder's waveform of 8 x 2250 latents, equal the old chain's, bit for
+    bit, with 11 and 14 launches."""
+    enc = AcousticEncoder(weights="random", seed=0, device=dev, precision="bfloat16")
+    pcm = np.random.default_rng(10).standard_normal((8, 720000)) * 3000
+    audio = (torch.from_numpy(pcm.clip(-32768, 32767).astype(np.int16)).to(dev).float()
+             * (1.0 / 32768.0)).bfloat16()
+    with torch.inference_mode(), enc.policy.numerics():
+        before = elu_pad.launches
+        z = enc.seanet(audio)
+        assert elu_pad.launches == before + 11 and z.dtype == torch.bfloat16
+        assert torch.equal(z, encoder_chain(enc.seanet, audio))
+    del z, audio
+    dec = AcousticDecoder(weights="random", seed=0, device=dev, precision="bfloat16")
+    lat = _gauss(dev, (8, 2250, 128), 11).bfloat16()
+    with torch.inference_mode(), dec.policy.numerics():
+        before = elu_pad.launches
+        wav = dec.seanet(lat)
+        assert elu_pad.launches == before + 14 and wav.dtype == torch.bfloat16
+        assert torch.equal(wav, decoder_chain(dec.seanet, lat))
 
 
 def _attn_inputs(dev, B, H, T, seed=0):
