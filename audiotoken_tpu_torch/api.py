@@ -1,5 +1,5 @@
 """AudioToken facade: encode and decode for acoustic, semantic_s and
-semantic_m.
+semantic_m, and encode for Mimi.
 
 Counterpart of ``audiotoken_tpu/api.py:AudioToken``: same constructor
 arguments (plus an explicit torch ``device``, default CUDA), the same
@@ -19,17 +19,25 @@ from .configs import (
     AcousticDecoderConfig,
     AcousticEncoderConfig,
     HubertEncoderConfig,
+    MimiEncoderConfig,
     Tokenizers,
     Wav2VecBertConfig,
     num_codebooks_to_bandwidth,
 )
-from .encoders import AcousticEncoder, HubertEncoder, Wav2VecBertEncoder, mesh_device
+from .encoders import (
+    AcousticEncoder,
+    HubertEncoder,
+    MimiEncoder,
+    Wav2VecBertEncoder,
+    mesh_device,
+)
 from .runtime.profiling import span
 
 _ENCODERS = {
     Tokenizers.acoustic: AcousticEncoder,
     Tokenizers.semantic_s: HubertEncoder,
     Tokenizers.semantic_m: Wav2VecBertEncoder,
+    Tokenizers.mimi: MimiEncoder,
 }
 
 ArrayLike = Union[np.ndarray, "os.PathLike[str]", Path, str, bytes]
@@ -40,10 +48,11 @@ class AudioToken:
 
     Args:
         tokenizer: :class:`Tokenizers`: ``acoustic``, ``semantic_s`` or
-            ``semantic_m`` (encode and decode).
+            ``semantic_m`` (encode and decode), or ``mimi`` (encode).
         device: torch device, default ``"cuda"`` (which raises when no GPU
             is present); ``"cpu"`` runs the kernels' plain versions.
-        num_codebooks: acoustic codebook count in {2, 4, 8, 16}.
+        num_codebooks: acoustic codebook count in {2, 4, 8, 16}; Mimi's
+            in 1..32 (Moshi reads 8, CSM all 32).
         weights: ``"artifacts"`` (the upstream checkpoints, converted on
             the fly: staged in ``$AUDIOTOKEN_ARTIFACTS``, else from the hub
             where ``transformers`` imports), ``"random"`` (seeded random
@@ -56,7 +65,8 @@ class AudioToken:
             ``"default"`` (TF32 in cuBLAS and cuDNN), ``"bfloat16"`` (bf16
             where the JAX package computes in bf16, TF32 elsewhere);
             semantic_m also takes ``"mixed"``: ``"high"`` with the stages
-            of ``runtime/precision.py:W2VBERT_MIXED_OVERRIDES`` in IEEE f32.
+            of ``runtime/precision.py:W2VBERT_MIXED_OVERRIDES`` in IEEE f32;
+            Mimi ``"highest"`` and ``"high"`` alone.
         mesh: a ``parallel.mesh.Mesh`` (``make_mesh``): the encoder runs data
             parallel over its "dp" axis on the mesh's device, and every rank
             must make the same calls. The decoders take none, as in JAX.
@@ -73,7 +83,10 @@ class AudioToken:
         mesh=None,
     ):
         self.tokenizer_name = Tokenizers(tokenizer)
-        if num_codebooks not in (2, 4, 8, 16):
+        if self.tokenizer_name == Tokenizers.mimi:
+            if not 1 <= num_codebooks <= 32:
+                raise ValueError(f"num_codebooks must be in 1..32 for mimi, got {num_codebooks}")
+        elif num_codebooks not in (2, 4, 8, 16):
             raise ValueError(f"num_codebooks must be one of [2, 4, 8, 16], got {num_codebooks}")
         self.device = mesh_device(device, mesh)
         self.mesh = mesh
@@ -87,6 +100,8 @@ class AudioToken:
             )
         elif self.tokenizer_name == Tokenizers.semantic_s:
             self.model_config = HubertEncoderConfig()
+        elif self.tokenizer_name == Tokenizers.mimi:
+            self.model_config = MimiEncoderConfig(num_codebooks=num_codebooks)
         else:
             self.model_config = Wav2VecBertConfig()
         self.model_sample_rate = self.model_config.model_sample_rate
@@ -139,7 +154,7 @@ class AudioToken:
             return self._encode_single(read_audio(audio, self.model_sample_rate))
 
         sr = self.model_sample_rate
-        hop = sr // self.model_config.model_token_rate
+        hop = int(round(sr / self.model_config.model_token_rate))
         carry_len = int(round(overlap * sr / hop)) * hop if overlap > 0 else 0
         carry = np.zeros((1, 0), np.float32)
         out = []
@@ -192,6 +207,8 @@ class AudioToken:
         (``AcousticDecoder``, ``HubertDecoder`` or ``Wav2VecBertDecoder``)."""
         if self.decoder is not None:
             return
+        if self.tokenizer_name == Tokenizers.mimi:
+            raise NotImplementedError("Mimi decode is not ported yet (ROADMAP Queue 4 item 7)")
         from . import decoders
 
         common = dict(weights=self.weights, precision=self.precision, seed=self.seed,

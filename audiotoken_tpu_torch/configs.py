@@ -2,7 +2,8 @@
 joint vocabulary of the semantic -> acoustic GPT.
 
 Counterpart of ``audiotoken_tpu/configs.py``: acoustic, semantic_s and
-semantic_m encode, acoustic and semantic decode, the corpus path (the file
+semantic_m encode, acoustic and semantic decode (and Mimi encode, which
+the JAX package does not have), the corpus path (the file
 extensions it reads, and ``AudioConfig``, the metadata of one chunk) and
 the upstream checkpoints (``Artifact``, ``ARTIFACTS``).
 """
@@ -34,6 +35,7 @@ class Tokenizers(str, Enum):
     acoustic = "acoustic"
     semantic_s = "semantic_s"
     semantic_m = "semantic_m"
+    mimi = "mimi"
 
 
 @dataclass(frozen=True)
@@ -105,6 +107,7 @@ ARTIFACTS: Dict[str, Artifact] = {
         filename="semantic_detokenizer/semantic_m/w2vbert2_semantic_acoustic_gpt_hi.pt",
         revision=_REV,
     ),
+    "mimi": Artifact(repo_id="kyutai/mimi", filename="model.safetensors"),
 }
 
 
@@ -112,7 +115,7 @@ ARTIFACTS: Dict[str, Artifact] = {
 class EncoderConfig:
     model_id: str
     model_sample_rate: int
-    model_token_rate: int
+    model_token_rate: float  # tokens a second: 12.5 for Mimi
     pad_token: Optional[int]
 
 
@@ -132,6 +135,19 @@ class AcousticDecoderConfig(AcousticEncoderConfig):
     """Acoustic decode defaults to 8 codebooks (6 kbps)."""
 
     bandwidth: float = 6.0
+
+
+@dataclass(frozen=True)
+class MimiEncoderConfig(EncoderConfig):
+    """Mimi (kyutai/mimi) encode: 12.5 code frames a second, the first
+    ``num_codebooks`` of 32 (1 semantic, then acoustic)."""
+
+    model_id: str = "kyutai/mimi"
+    model_sample_rate: int = 24_000
+    model_token_rate: float = 12.5
+    pad_token: Optional[int] = 0
+    num_codebooks: int = 32
+    weights_artifact: str = "mimi"
 
 
 @dataclass(frozen=True)
@@ -239,7 +255,7 @@ class AudioConfig:
     end_idx: Optional[int] = None
     length_seconds: Optional[float] = None
     length_samples: Optional[int] = None
-    model_token_rate: Optional[int] = None
+    model_token_rate: Optional[float] = None
 
     @property
     def length_tokens(self) -> int:

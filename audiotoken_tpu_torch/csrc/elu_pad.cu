@@ -5,6 +5,8 @@
 // with the residual r and the ELU each optional, and, on request, keep =
 // x + r written contiguous for a 1x1 shortcut conv that reads it too; in
 // f32 (elu_pad_f32) and in bf16 (elu_pad_bf16, the bf16 policy's convs).
+// elu_pad_zero_f32 pads with zeros instead (Mimi's SEANet, pad_mode
+// "constant"): ELU(0) = 0, so a zero pad before or after the ELU is one.
 //
 // Replaces no TPU kernel: on the TPU XLA fuses the residual add, the ELU
 // and the pad into the convolution's operand, while the port's plain chain
@@ -128,13 +130,18 @@ __device__ __forceinline__ float sum1(const Args<E>& a, const E* xr, const E* rr
 }
 
 // out's sample j of the row: pad1d_reflect's index i = j - L reflected
-// into the extended row, zero past the row's own T samples
-template <typename E, bool ELU, bool RES>
+// into the extended row, zero past the row's own T samples; under ZERO,
+// zero outside the row's T samples
+template <typename E, bool ELU, bool RES, bool ZERO>
 __device__ __forceinline__ float gather(const Args<E>& a, const E* xr, const E* rr, int j) {
   int i = j - a.L;
-  if (i < 0) i = -i;
-  else if (i >= a.Te) i = 2 * (a.Te - 1) - i;
-  if (i >= a.T) return 0.f;
+  if (ZERO) {
+    if (i < 0 || i >= a.T) return 0.f;
+  } else {
+    if (i < 0) i = -i;
+    else if (i >= a.Te) i = 2 * (a.Te - 1) - i;
+    if (i >= a.T) return 0.f;
+  }
   return act<ELU>(sum1<E, RES>(a, xr, rr, i));
 }
 
@@ -150,7 +157,7 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
                      Elem<E>::round(a.z + b.z), Elem<E>::round(a.w + b.w));
 }
 
-template <typename E, bool ELU, bool RES, bool KEEP>
+template <typename E, bool ELU, bool RES, bool KEEP, bool ZERO>
 __global__ void __launch_bounds__(THREADS) elu_pad_kernel(const Args<E> a) {
   using V = typename Elem<E>::V;
   const int row = blockIdx.x / a.tiles, tile = blockIdx.x % a.tiles;
@@ -175,16 +182,17 @@ __global__ void __launch_bounds__(THREADS) elu_pad_kernel(const Args<E> a) {
         if (RES) w = add4<E>(w, load4(rr + (j - a.L), shift(rr, o0 + a.L)));
         o = make_float4(act<ELU>(w.x), act<ELU>(w.y), act<ELU>(w.z), act<ELU>(w.w));
       } else {
-        o = make_float4(gather<E, ELU, RES>(a, xr, rr, j), gather<E, ELU, RES>(a, xr, rr, j + 1),
-                        gather<E, ELU, RES>(a, xr, rr, j + 2),
-                        gather<E, ELU, RES>(a, xr, rr, j + 3));
+        o = make_float4(gather<E, ELU, RES, ZERO>(a, xr, rr, j),
+                        gather<E, ELU, RES, ZERO>(a, xr, rr, j + 1),
+                        gather<E, ELU, RES, ZERO>(a, xr, rr, j + 2),
+                        gather<E, ELU, RES, ZERO>(a, xr, rr, j + 3));
       }
       reinterpret_cast<V*>(a.out)[v] = Elem<E>::pack(o);
     } else {
       // a vector shared with the next or previous row
       for (int k = 0; k < 4; ++k)
         if (j + k >= 0 && j + k < To)
-          a.out[o0 + j + k] = Elem<E>::from(gather<E, ELU, RES>(a, xr, rr, j + k));
+          a.out[o0 + j + k] = Elem<E>::from(gather<E, ELU, RES, ZERO>(a, xr, rr, j + k));
     }
   }
 
@@ -212,13 +220,13 @@ __global__ void __launch_bounds__(THREADS) elu_pad_kernel(const Args<E> a) {
   }
 }
 
-template <typename E, bool ELU, bool RES, bool KEEP>
+template <typename E, bool ELU, bool RES, bool KEEP, bool ZERO>
 int launch(const Args<E>& a, unsigned blocks, cudaStream_t s) {
-  elu_pad_kernel<E, ELU, RES, KEEP><<<blocks, THREADS, 0, s>>>(a);
+  elu_pad_kernel<E, ELU, RES, KEEP, ZERO><<<blocks, THREADS, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename E>
+template <typename E, bool ZERO>
 int run(const E* x, const E* r, E* out, E* keep, int B, int C, int T, int L, int R, int sb,
         int sc, int st, int elu, void* stream) {
   constexpr uintptr_t align = sizeof(typename Elem<E>::V);
@@ -235,14 +243,14 @@ int run(const E* x, const E* r, E* out, E* keep, int B, int C, int T, int L, int
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned n = static_cast<unsigned>(blocks);
   switch ((elu ? 4 : 0) | (r ? 2 : 0) | (keep ? 1 : 0)) {
-    case 0: return launch<E, false, false, false>(a, n, s);
-    case 1: return launch<E, false, false, true>(a, n, s);
-    case 2: return launch<E, false, true, false>(a, n, s);
-    case 3: return launch<E, false, true, true>(a, n, s);
-    case 4: return launch<E, true, false, false>(a, n, s);
-    case 5: return launch<E, true, false, true>(a, n, s);
-    case 6: return launch<E, true, true, false>(a, n, s);
-    default: return launch<E, true, true, true>(a, n, s);
+    case 0: return launch<E, false, false, false, ZERO>(a, n, s);
+    case 1: return launch<E, false, false, true, ZERO>(a, n, s);
+    case 2: return launch<E, false, true, false, ZERO>(a, n, s);
+    case 3: return launch<E, false, true, true, ZERO>(a, n, s);
+    case 4: return launch<E, true, false, false, ZERO>(a, n, s);
+    case 5: return launch<E, true, false, true, ZERO>(a, n, s);
+    case 6: return launch<E, true, true, false, ZERO>(a, n, s);
+    default: return launch<E, true, true, true, ZERO>(a, n, s);
   }
 }
 
@@ -253,11 +261,18 @@ int run(const E* x, const E* r, E* out, E* keep, int B, int C, int T, int L, int
 // aligned to a vector of 4 elements. elu: 0 or 1.
 extern "C" int elu_pad_f32(const float* x, const float* r, float* out, float* keep, int B, int C,
                            int T, int L, int R, int sb, int sc, int st, int elu, void* stream) {
-  return run(x, r, out, keep, B, C, T, L, R, sb, sc, st, elu, stream);
+  return run<float, false>(x, r, out, keep, B, C, T, L, R, sb, sc, st, elu, stream);
+}
+
+// As elu_pad_f32, with zeros in place of the reflection.
+extern "C" int elu_pad_zero_f32(const float* x, const float* r, float* out, float* keep, int B,
+                                int C, int T, int L, int R, int sb, int sc, int st, int elu,
+                                void* stream) {
+  return run<float, true>(x, r, out, keep, B, C, T, L, R, sb, sc, st, elu, stream);
 }
 
 extern "C" int elu_pad_bf16(const __nv_bfloat16* x, const __nv_bfloat16* r, __nv_bfloat16* out,
                             __nv_bfloat16* keep, int B, int C, int T, int L, int R, int sb, int sc,
                             int st, int elu, void* stream) {
-  return run(x, r, out, keep, B, C, T, L, R, sb, sc, st, elu, stream);
+  return run<__nv_bfloat16, false>(x, r, out, keep, B, C, T, L, R, sb, sc, st, elu, stream);
 }

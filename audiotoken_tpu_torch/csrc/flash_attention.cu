@@ -68,6 +68,26 @@
 // The one-pass form, at JAX's Precision.DEFAULT (and HIGH, which the TPU
 // kernel lowers to DEFAULT), is a kernel of its own for Hopper:
 // csrc/flash_attention_tf32.cu.
+//
+// flash_attention_window_kernel: causal attention within a band of W keys
+// (Mimi's encoder transformer, W = 250 frames at 25 Hz), no rel term, no
+// padding bias, in 3xTF32 with K4's fragments and online softmax:
+//
+//   s[q, k] = (q . k) * dh^-0.5  if q - W < k <= q,  else -inf
+//
+// It replaces no TPU kernel (the JAX package runs no windowed attention);
+// it was added because no kernel of the port computed causal or banded
+// attention at "highest". What bounds it: 4 x dh FLOPs a (query, key) pair
+// in the band, 156,375 pairs a (row, head) at T = 750 and W = 250, 80 GFLOP
+// for Mimi's 8 layers at B = 32; at W << T the work is linear in T. The
+// design: a block of 128 queries walks only the key tiles that reach its
+// band ([q0 - W + 1, q0 + 127]); a warp skips the math of a tile that lies
+// wholly outside its own 16 rows' band, and masks only the tiles that cut
+// the band's edges. A row may see no key of a tile it takes part in, so
+// the running maximum starts at -inf and the softmax shifts by 0 while it
+// is -inf. It shares K4's Q fragments, tile products, online softmax and
+// epilogue (q_fragments, tile_scores, softmax_step, pv_products,
+// store_rows).
 
 #include <cfloat>
 #include <cstdint>
@@ -146,6 +166,140 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The Q tile's rows of a warp as A fragments, split once into hi and lo:
+// k-step 2j + h takes dims 16j + 4t + 2h (slot t) and 16j + 4t + 2h + 1
+// (slot t + 4) of rows g and g + 8
+__device__ __forceinline__ void q_fragments(const float* qs, int warp, int g, int t,
+                                            uint32_t (&qh)[8][4], uint32_t (&ql)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float4 x = *reinterpret_cast<const float4*>(qs + (warp * 16 + g) * LDQ + 16 * j + 4 * t);
+    const float4 y =
+        *reinterpret_cast<const float4*>(qs + (warp * 16 + g + 8) * LDQ + 16 * j + 4 * t);
+    split(x.x, qh[2 * j][0], ql[2 * j][0]);
+    split(y.x, qh[2 * j][1], ql[2 * j][1]);
+    split(x.y, qh[2 * j][2], ql[2 * j][2]);
+    split(y.y, qh[2 * j][3], ql[2 * j][3]);
+    split(x.z, qh[2 * j + 1][0], ql[2 * j + 1][0]);
+    split(y.z, qh[2 * j + 1][1], ql[2 * j + 1][1]);
+    split(x.w, qh[2 * j + 1][2], ql[2 * j + 1][2]);
+    split(y.w, qh[2 * j + 1][3], ql[2 * j + 1][3]);
+  }
+}
+
+// s = Q K^T over a tile's 64 keys (K rows in shared memory, LDK apart):
+// n-tile n holds keys n*8 + 2t, + 1
+__device__ __forceinline__ void tile_scores(const float* ks, int g, int t,
+                                            const uint32_t (&qh)[8][4],
+                                            const uint32_t (&ql)[8][4], float (&s)[8][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    // each term across the 8 n-tiles before the next: consecutive mma.sync
+    // are independent
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t bh[8][2], bl[8][2];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 b = *reinterpret_cast<const float2*>(ks + (n * 8 + g) * LDK + 16 * jj + 4 * t + 2 * h);
+        split(b.x, bh[n][0], bl[n][0]);
+        split(b.y, bh[n][1], bl[n][1]);
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) mma_tf32(s[n], ql[2 * jj + h], bh[n][0], bh[n][1]);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) mma_tf32(s[n], qh[2 * jj + h], bl[n][0], bl[n][1]);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) mma_tf32(s[n], qh[2 * jj + h], bh[n][0], bh[n][1]);
+    }
+  }
+}
+
+// One step of the online softmax over rows g (e = 0, 1) and g + 8 (e = 2,
+// 3): the rows' maxima across the quad, l and o rescaled, and the shift
+// that the tile's probabilities take. EMPTY: a row may have seen no key
+// yet (its maximum -inf); it then shifts by 0.
+template <bool EMPTY>
+__device__ __forceinline__ void softmax_step(const float (&s)[8][4], float (&m)[2], float (&l)[2],
+                                             float (&o)[8][4], float (&shift)[2]) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+    shift[i] = (EMPTY && mx[i] == -CUDART_INF_F) ? 0.f : mx[i];
+    const float alpha = expf(m[i] - shift[i]);
+    m[i] = mx[i];
+    l[i] *= alpha;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      o[n][2 * i] *= alpha;
+      o[n][2 * i + 1] *= alpha;
+    }
+  }
+}
+
+// o += P V with P = exp(s - shift), and P's row sums into this thread's l:
+// k-step n takes keys n*8 + 2t (slot t) and n*8 + 2t + 1 (slot t + 4), the
+// C fragment's columns (V rows in shared memory, LDV apart)
+__device__ __forceinline__ void pv_products(const float* vs, int g, int t, const float (&s)[8][4],
+                                            const float (&shift)[2], float (&l)[2],
+                                            float (&o)[8][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const float p0 = expf(s[n][0] - shift[0]), p1 = expf(s[n][1] - shift[0]);
+    const float p2 = expf(s[n][2] - shift[1]), p3 = expf(s[n][3] - shift[1]);
+    l[0] += p0 + p1;
+    l[1] += p2 + p3;
+    uint32_t ph[4], pl[4];
+    split(p0, ph[0], pl[0]);
+    split(p2, ph[1], pl[1]);
+    split(p1, ph[2], pl[2]);
+    split(p3, ph[3], pl[3]);
+    const float* v0 = vs + (n * 8 + 2 * t) * LDV + g;
+    uint32_t vh[8][2], vl[8][2];
+#pragma unroll
+    for (int dd = 0; dd < 8; ++dd) {
+      split(v0[dd * 8], vh[dd][0], vl[dd][0]);
+      split(v0[LDV + dd * 8], vh[dd][1], vl[dd][1]);
+    }
+#pragma unroll
+    for (int dd = 0; dd < 8; ++dd) mma_tf32(o[dd], pl, vh[dd][0], vh[dd][1]);
+#pragma unroll
+    for (int dd = 0; dd < 8; ++dd) mma_tf32(o[dd], ph, vl[dd][0], vl[dd][1]);
+#pragma unroll
+    for (int dd = 0; dd < 8; ++dd) mma_tf32(o[dd], ph, vh[dd][0], vh[dd][1]);
+  }
+}
+
+// The epilogue: the row sums across the quad, o / max(l, 1e-30) written
+// for rows r and r + 8 below T
+__device__ __forceinline__ void store_rows(float* dst_rows, int r, int T, int t, float (&l)[2],
+                                           const float (&o)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(FULL, l[i], 1);
+    l[i] += __shfl_xor_sync(FULL, l[i], 2);
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if (r + 8 * i < T) {
+      float* dst = dst_rows + (size_t)(r + 8 * i) * DH + 2 * t;
+#pragma unroll
+      for (int dd = 0; dd < 8; ++dd)
+        *reinterpret_cast<float2*>(dst + dd * 8) =
+            make_float2(o[dd][2 * i] * inv, o[dd][2 * i + 1] * inv);
+    }
+  }
+}
+
 // PRESCALED: q comes multiplied by dh^-0.5 already (K5's f32 path), and the
 // scores are not scaled again; else they are scaled by 0.125, exactly.
 template <bool PRESCALED>
@@ -201,23 +355,8 @@ flash_attention_relkey_kernel(const float* __restrict__ q, const float* __restri
     pos[r * pos_ld + p] = acc;
   }
 
-  // Q as A fragments: k-step 2j + h takes dims 16j + 4t + 2h (slot t) and
-  // 16j + 4t + 2h + 1 (slot t + 4) of rows g and g + 8
   uint32_t qh[8][4], ql[8][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float4 x = *reinterpret_cast<const float4*>(qs + (warp * 16 + g) * LDQ + 16 * j + 4 * t);
-    const float4 y =
-        *reinterpret_cast<const float4*>(qs + (warp * 16 + g + 8) * LDQ + 16 * j + 4 * t);
-    split(x.x, qh[2 * j][0], ql[2 * j][0]);
-    split(y.x, qh[2 * j][1], ql[2 * j][1]);
-    split(x.y, qh[2 * j][2], ql[2 * j][2]);
-    split(y.y, qh[2 * j][3], ql[2 * j][3]);
-    split(x.z, qh[2 * j + 1][0], ql[2 * j + 1][0]);
-    split(y.z, qh[2 * j + 1][1], ql[2 * j + 1][1]);
-    split(x.w, qh[2 * j + 1][2], ql[2 * j + 1][2]);
-    split(y.w, qh[2 * j + 1][3], ql[2 * j + 1][3]);
-  }
+  q_fragments(qs, warp, g, t, qh, ql);
   __syncthreads();  // pos is written; every warp has read Q out of buffer 1
 
   float pos_l[2] = {0.f, 0.f}, pos_r[2] = {0.f, 0.f};  // rows g and g + 8
@@ -251,33 +390,8 @@ flash_attention_relkey_kernel(const float* __restrict__ q, const float* __restri
     const float* vs = ks + BK * LDK;
     const float* kb = kbias + (j & 1) * BK;
 
-    // S = Q K^T over the tile's 64 keys: n-tile n holds keys n*8 + 2t, + 1
     float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      // each term across the 8 n-tiles before the next: consecutive mma.sync
-      // are independent
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        uint32_t bh[8][2], bl[8][2];
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const float2 b = *reinterpret_cast<const float2*>(ks + (n * 8 + g) * LDK + 16 * jj + 4 * t + 2 * h);
-          split(b.x, bh[n][0], bl[n][0]);
-          split(b.y, bh[n][1], bl[n][1]);
-        }
-#pragma unroll
-        for (int n = 0; n < 8; ++n) mma_tf32(s[n], ql[2 * jj + h], bh[n][0], bh[n][1]);
-#pragma unroll
-        for (int n = 0; n < 8; ++n) mma_tf32(s[n], qh[2 * jj + h], bl[n][0], bl[n][1]);
-#pragma unroll
-        for (int n = 0; n < 8; ++n) mma_tf32(s[n], qh[2 * jj + h], bh[n][0], bh[n][1]);
-      }
-    }
+    tile_scores(ks, g, t, qh, ql, s);
 
     if (P > 0) {
       // the band is k - q + left in [0, P - 1]; d covers the warp's pairs
@@ -315,71 +429,95 @@ flash_attention_relkey_kernel(const float* __restrict__ q, const float* __restri
       }
     }
 
-    // online softmax over rows g (e = 0, 1) and g + 8 (e = 2, 3)
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
-      const float alpha = expf(m[i] - mx[i]);  // mx is finite: every tile has a key < T
-      m[i] = mx[i];
-      l[i] *= alpha;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        o[n][2 * i] *= alpha;
-        o[n][2 * i + 1] *= alpha;
-      }
-    }
+    float shift[2];  // the new maximum: finite, since every tile has a key < T
+    softmax_step<false>(s, m, l, o, shift);
+    pv_products(vs, g, t, s, shift, l, o);
+    __syncthreads();  // every warp is done with this buffer before it is refilled
+  }
 
-    // O += P V: k-step n takes keys n*8 + 2t (slot t) and n*8 + 2t + 1
-    // (slot t + 4), the C fragment's columns
+  store_rows(out + base, qw + g, T, t, l, o);
+}
+
+// Mimi's window: causal, key k visible to query q iff q - W < k <= q.
+// grid (query tiles of BQ, BH); q unscaled, the scores scaled by 0.125
+__global__ void __launch_bounds__(WARPS * 32, 1)
+flash_attention_window_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, float* __restrict__ out, int T,
+                              int W) {
+  extern __shared__ __align__(16) float smem[];
+  float* kv = smem;        // [2][TILE]: K [BK][LDK], then V [BK][LDV]
+  float* qs = kv + TILE;   // [BQ][LDQ] the Q tile, until the second key tile arrives
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * BQ;
+  const int qw = q0 + warp * 16;  // the warp's first row
+  const size_t base = (size_t)blockIdx.y * T * DH;
+  // the key tiles that reach the block's band, and the warp's own keys
+  const int j0 = max(0, q0 - W + 1) / BK, j1 = (min(T, q0 + BQ) - 1) / BK;
+  const int wlo = qw - W + 1, whi = qw + 15;
+
+  auto load_tile = [&](int j) {
+    float* kt = kv + ((j - j0) & 1) * TILE;
+    load_rows<BK, LDK>(kt, k + base, j * BK, T);
+    load_rows<BK, LDV>(kt + BK * LDK, v + base, j * BK, T);
+  };
+
+  load_rows<BQ, LDQ>(qs, q + base, q0, T);
+  load_tile(j0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  uint32_t qh[8][4], ql[8][4];
+  q_fragments(qs, warp, g, t, qh, ql);
+  __syncthreads();  // every warp has read Q out of buffer 1
+
+  float o[8][4];
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const float p0 = expf(s[n][0] - m[0]), p1 = expf(s[n][1] - m[0]);
-      const float p2 = expf(s[n][2] - m[1]), p3 = expf(s[n][3] - m[1]);
-      l[0] += p0 + p1;
-      l[1] += p2 + p3;
-      uint32_t ph[4], pl[4];
-      split(p0, ph[0], pl[0]);
-      split(p2, ph[1], pl[1]);
-      split(p1, ph[2], pl[2]);
-      split(p3, ph[3], pl[3]);
-      const float* v0 = vs + (n * 8 + 2 * t) * LDV + g;
-      uint32_t vh[8][2], vl[8][2];
+  for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int dd = 0; dd < 8; ++dd) {
-        split(v0[dd * 8], vh[dd][0], vl[dd][0]);
-        split(v0[LDV + dd * 8], vh[dd][1], vl[dd][1]);
-      }
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int j = j0; j <= j1; ++j) {
+    const int k0 = j * BK;
+    if (j < j1) {
+      load_tile(j + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (k0 <= whi && k0 + BK - 1 >= wlo) {  // the tile reaches the warp's band
+      const float* ks = kv + ((j - j0) & 1) * TILE;
+      const float* vs = ks + BK * LDK;
+
+      float s[8][4];
+      tile_scores(ks, g, t, qh, ql, s);
+
+      // every key of the tile inside every row's band, or a mask a pair
+      const bool edge = !(k0 + BK - 1 <= qw && k0 > whi - W);
 #pragma unroll
-      for (int dd = 0; dd < 8; ++dd) mma_tf32(o[dd], pl, vh[dd][0], vh[dd][1]);
+      for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int dd = 0; dd < 8; ++dd) mma_tf32(o[dd], ph, vl[dd][0], vl[dd][1]);
-#pragma unroll
-      for (int dd = 0; dd < 8; ++dd) mma_tf32(o[dd], ph, vh[dd][0], vh[dd][1]);
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + n * 8 + 2 * t + (e & 1), row = qw + g + 8 * (e >> 1);
+          const float x = s[n][e] * 0.125f;  // dh^-0.5
+          s[n][e] = (edge && (key > row || key <= row - W)) ? -CUDART_INF_F : x;
+        }
+
+      float shift[2];  // 0 while a row has seen no key
+      softmax_step<true>(s, m, l, o, shift);
+      pv_products(vs, g, t, s, shift, l, o);
     }
     __syncthreads();  // every warp is done with this buffer before it is refilled
   }
 
-  const int r = qw + g;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(FULL, l[i], 1);
-    l[i] += __shfl_xor_sync(FULL, l[i], 2);
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    if (r + 8 * i < T) {
-      float* dst = out + base + (size_t)(r + 8 * i) * DH + 2 * t;
-#pragma unroll
-      for (int dd = 0; dd < 8; ++dd)
-        *reinterpret_cast<float2*>(dst + dd * 8) =
-            make_float2(o[dd][2 * i] * inv, o[dd][2 * i + 1] * inv);
-    }
-  }
+  store_rows(out + base, qw + g, T, t, l, o);
 }
 
 template <bool PRESCALED>
@@ -415,4 +553,19 @@ extern "C" int flash_attention_relkey_f32(const float* q, const float* k, const 
 extern "C" int flash_attention_plain_f32(const float* q, const float* k, const float* v,
                                          float* out, int BH, int T, void* stream) {
   return launch<true>(q, k, v, nullptr, nullptr, out, BH, 1, T, 0, 0, stream);
+}
+
+// Mimi's windowed causal attention: q, k, v, out [BH, T, 64] f32, q
+// unscaled; key k visible to query q iff q - W < k <= q (W >= 1).
+extern "C" int flash_attention_window_f32(const float* q, const float* k, const float* v,
+                                          float* out, int BH, int T, int W, void* stream) {
+  if (BH < 1 || T < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (size_t)2 * TILE * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_window_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((T + BQ - 1) / BQ, BH);
+  flash_attention_window_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(q, k, v, out,
+                                                                                     T, W);
+  return static_cast<int>(cudaGetLastError());
 }

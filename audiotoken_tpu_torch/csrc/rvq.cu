@@ -58,6 +58,10 @@
 //     more evenly over the SMs; each block of a cluster keeps its own copy of
 //     the residual, and the blocks merge their per-row best through
 //     distributed shared memory each codebook, in rank order.
+//
+// Mimi's split RVQ runs the same kernel at D = 256 (rvq_encode_d256_f32,
+// C = 2048: once with its semantic codebook, once with its 31 acoustic
+// ones); the Shape below says what changes there.
 
 #include <cstdint>
 
@@ -69,18 +73,37 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int D = 128;          // codeword dimension
-constexpr int KSTEPS = D / 8;   // k-steps of m16n8k8
-constexpr int CH = 64;          // codewords a chunk
-constexpr int MT = CH / 16;     // m-tiles (16 codewords) a chunk
-constexpr int LDE = D + 8;      // row of a chunk, floats: conflict-free float2 reads
-constexpr int WARPS = 4;        // a block; three blocks an SM at <= 168 registers
-constexpr int ROWS = WARPS * 16;  // residual rows a block
 constexpr unsigned FULL = 0xffffffffu;
 
-// chunks [2][CH][LDE] and their |e|^2 [2][CH]; best value and index
-// [2][ROWS] each (a cluster's merge, double-buffered)
-constexpr size_t SMEM_BYTES = (size_t)2 * CH * (LDE + 1) * sizeof(float) + (size_t)2 * 2 * ROWS * 4;
+// The kernel's shape for one codeword dimension D. At D = 128 (EnCodec) a
+// block is 4 warps, 64 codewords a chunk, the rows in registers, three
+// blocks an SM at <= 168 registers. At D = 256 (Mimi) the rows would take
+// 128 registers a thread, so they live in shared memory instead (SROWS,
+// rows of D + 8 floats: the fragment reads are conflict-free as the
+// chunk's are), read as each k-step needs them; a lane reads and writes
+// only its own elements there, so they need no barrier. The rows (132 KB
+// for 8 warps) and 32-codeword chunks fill one block an SM, of 8 warps, so
+// that a chunk serves 128 rows.
+template <int D_, int WARPS_, int CH_, int MINB_, bool SROWS_>
+struct Shape {
+  static constexpr int D = D_;          // codeword dimension
+  static constexpr int KSTEPS = D / 8;  // k-steps of m16n8k8
+  static constexpr int CH = CH_;        // codewords a chunk
+  static constexpr int MT = CH / 16;    // m-tiles (16 codewords) a chunk
+  static constexpr int LDE = D + 8;     // row of a chunk, floats: conflict-free float2 reads
+  static constexpr int WARPS = WARPS_;  // a block
+  static constexpr int MINB = MINB_;    // blocks an SM
+  static constexpr int ROWS = WARPS * 16;  // residual rows a block
+  static constexpr bool SROWS = SROWS_;    // the rows in shared memory
+  static constexpr int LDR = D + 8;        // a row there, floats
+  // chunks [2][CH][LDE] and their |e|^2 [2][CH]; best value and index
+  // [2][ROWS] each (a cluster's merge, double-buffered); the rows [ROWS][LDR]
+  static constexpr size_t SMEM_BYTES = (size_t)2 * CH * (LDE + 1) * sizeof(float) +
+                                       (size_t)2 * 2 * ROWS * 4 +
+                                       (SROWS ? (size_t)ROWS * LDR * sizeof(float) : 0);
+};
+using D128 = Shape<128, 4, 64, 3, false>;
+using D256 = Shape<256, 8, 32, 1, true>;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -127,12 +150,15 @@ __device__ __forceinline__ void better(float& v, int& i, float ov, int oi) {
 
 // grid: (row tiles of ROWS rows) x nsplit, clusters of nsplit blocks along
 // x; cpb codewords a block (rank r takes [r cpb, (r + 1) cpb) of C)
-__global__ void __launch_bounds__(WARPS * 32, 3)
+template <class S>
+__global__ void __launch_bounds__(S::WARPS * 32, S::MINB)
 rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ cb,
                   const float* __restrict__ e2, int* __restrict__ codes, int N, int num_q,
                   int C, int nsplit, int cpb) {
+  constexpr int D = S::D, KSTEPS = S::KSTEPS, CH = S::CH, MT = S::MT, LDE = S::LDE;
+  constexpr int WARPS = S::WARPS, LDR = S::LDR;
   extern __shared__ __align__(16) float smem[];
-  constexpr int rows = ROWS;
+  constexpr int rows = S::ROWS;
   float* eb = smem;                                 // [2][CH][LDE] codeword chunks
   float* e2s = eb + 2 * CH * LDE;                   // [2][CH] the chunks' |e|^2
   float* bv = e2s + 2 * CH;                         // [2][rows] best value
@@ -169,7 +195,10 @@ rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ cb,
   };
 
   issue(0);
-  float rf[KSTEPS][2][2];  // the residual rows in f32: rows g + 8n, dims ks * 8 + 2t, + 1
+  // the residual rows in f32: rows g + 8n, dims ks * 8 + 2t, + 1; in
+  // registers, or (SROWS) at rs[(g + 8n) * LDR + ks * 8 + 2t]
+  float rf[S::SROWS ? 1 : KSTEPS][2][2];
+  float* rs = reinterpret_cast<float*>(bi + 2 * rows) + warp * 16 * LDR;
 #pragma unroll
   for (int ks = 0; ks < KSTEPS; ++ks)
 #pragma unroll
@@ -178,8 +207,12 @@ rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ cb,
       const float2 p = r < nrows
           ? __ldg(reinterpret_cast<const float2*>(x + (size_t)(n0 + r) * D + ks * 8 + 2 * t))
           : make_float2(0.f, 0.f);
-      rf[ks][n][0] = p.x;
-      rf[ks][n][1] = p.y;
+      if constexpr (S::SROWS) {
+        *reinterpret_cast<float2*>(rs + r * LDR + ks * 8 + 2 * t) = p;
+      } else {
+        rf[ks][n][0] = p.x;
+        rf[ks][n][1] = p.y;
+      }
     }
   float x2[4];  // |r|^2 of the lane's C rows 2t, 2t + 1, 8 + 2t, 9 + 2t
   float best[4];
@@ -197,10 +230,19 @@ rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ cb,
       float s0 = 0.f, s1 = 0.f;
 #pragma unroll
       for (int ks = 0; ks < KSTEPS; ++ks) {
-        s0 = fmaf(rf[ks][0][0], rf[ks][0][0], s0);
-        s0 = fmaf(rf[ks][0][1], rf[ks][0][1], s0);
-        s1 = fmaf(rf[ks][1][0], rf[ks][1][0], s1);
-        s1 = fmaf(rf[ks][1][1], rf[ks][1][1], s1);
+        if constexpr (S::SROWS) {
+          const float2 a = *reinterpret_cast<const float2*>(rs + g * LDR + ks * 8 + 2 * t);
+          const float2 b = *reinterpret_cast<const float2*>(rs + (g + 8) * LDR + ks * 8 + 2 * t);
+          s0 = fmaf(a.x, a.x, s0);
+          s0 = fmaf(a.y, a.y, s0);
+          s1 = fmaf(b.x, b.x, s1);
+          s1 = fmaf(b.y, b.y, s1);
+        } else {
+          s0 = fmaf(rf[ks][0][0], rf[ks][0][0], s0);
+          s0 = fmaf(rf[ks][0][1], rf[ks][0][1], s0);
+          s1 = fmaf(rf[ks][1][0], rf[ks][1][0], s1);
+          s1 = fmaf(rf[ks][1][1], rf[ks][1][1], s1);
+        }
       }
       s0 += __shfl_xor_sync(FULL, s0, 1);
       s0 += __shfl_xor_sync(FULL, s0, 2);
@@ -231,8 +273,14 @@ rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ cb,
       uint32_t rh[2][2], rl[2][2];
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
-        split(rf[ks][n][0], rh[n][0], rl[n][0]);
-        split(rf[ks][n][1], rh[n][1], rl[n][1]);
+        if constexpr (S::SROWS) {
+          const float2 p = *reinterpret_cast<const float2*>(rs + (g + 8 * n) * LDR + ks * 8 + 2 * t);
+          split(p.x, rh[n][0], rl[n][0]);
+          split(p.y, rh[n][1], rl[n][1]);
+        } else {
+          split(rf[ks][n][0], rh[n][0], rl[n][0]);
+          split(rf[ks][n][1], rh[n][1], rl[n][1]);
+        }
       }
       uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
@@ -324,13 +372,44 @@ rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ cb,
 #pragma unroll
         for (int ks = 0; ks < KSTEPS; ++ks) {
           const float2 ev = __ldg(reinterpret_cast<const float2*>(er + ks * 8));
-          rf[ks][n][0] -= ev.x;
-          rf[ks][n][1] -= ev.y;
+          if constexpr (S::SROWS) {
+            float2* p = reinterpret_cast<float2*>(rs + (g + 8 * n) * LDR + ks * 8 + 2 * t);
+            *p = make_float2(p->x - ev.x, p->y - ev.y);
+          } else {
+            rf[ks][n][0] -= ev.x;
+            rf[ks][n][1] -= ev.y;
+          }
         }
       }
     }
   }
   if (nsplit > 1) cluster.sync();  // the others may still read this block's best
+}
+
+template <class S>
+int launch(const float* x, const float* cb, const float* e2, int* codes, int N, int num_q, int C,
+           int split, void* stream) {
+  if ((split != 1 && split != 2 && split != 4) || C % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      rvq_encode_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (N + S::ROWS - 1) / S::ROWS;
+  const int cpb = (C + split - 1) / split;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = split;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * split);
+  cfg.blockDim = dim3(S::WARPS * 32);
+  cfg.dynamicSmemBytes = S::SMEM_BYTES;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &attr;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, rvq_encode_kernel<S>, x, cb, e2, codes, N, num_q, C, split, cpb);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace
@@ -341,25 +420,12 @@ rvq_encode_kernel(const float* __restrict__ x, const float* __restrict__ cb,
 // the C codewords (C % 16 == 0) between them.
 extern "C" int rvq_encode_f32(const float* x, const float* cb, const float* e2, int* codes,
                               int N, int num_q, int C, int split, void* stream) {
-  if ((split != 1 && split != 2 && split != 4) || C % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      rvq_encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (N + ROWS - 1) / ROWS;
-  const int cpb = (C + split - 1) / split;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = split;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles * split);
-  cfg.blockDim = dim3(WARPS * 32);
-  cfg.dynamicSmemBytes = SMEM_BYTES;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = &attr;
-  cfg.numAttrs = split > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, rvq_encode_kernel, x, cb, e2, codes, N, num_q, C, split, cpb);
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  return launch<D128>(x, cb, e2, codes, N, num_q, C, split, stream);
+}
+
+// As rvq_encode_f32 at D = 256 (x [N, 256], cb [>= num_q, C, 256]): a block
+// takes 128 rows.
+extern "C" int rvq_encode_d256_f32(const float* x, const float* cb, const float* e2, int* codes,
+                                   int N, int num_q, int C, int split, void* stream) {
+  return launch<D256>(x, cb, e2, codes, N, num_q, C, split, stream);
 }

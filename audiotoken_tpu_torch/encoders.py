@@ -3,7 +3,9 @@
 Counterpart of ``audiotoken_tpu/encoders.py``: ``AcousticEncoder`` gives
 numpy int16 codes [B, K, T] at 75 frames per second, ``HubertEncoder``
 (semantic_s) and ``Wav2VecBertEncoder`` (semantic_m) int16 ids [B, 1, T]
-at 50 per second.
+at 50 per second. ``MimiEncoder`` (no counterpart there) gives Mimi's
+codes [B, K, T] at 12.5 frames per second through ``AcousticEncoder``'s
+entry.
 
 Each encoder's ``dispatch`` queues the work on the device and returns the
 device tensor without waiting for it (no copy back, no synchronisation):
@@ -35,10 +37,16 @@ import torch
 
 import torch.nn.functional as F
 
-from .configs import AcousticEncoderConfig, HubertEncoderConfig, Wav2VecBertConfig
+from .configs import (
+    AcousticEncoderConfig,
+    HubertEncoderConfig,
+    MimiEncoderConfig,
+    Wav2VecBertConfig,
+)
 from .nn.conformer import W2VBertConfig, W2VBertFeatures
 from .nn.fbank import FbankConfig, fbank_features
 from .nn.hubert import HubertConfig, HubertFeatures, feature_lengths
+from .nn.mimi import MimiConfig, MimiEncode
 from .nn.rvq import ResidualVQ, RVQConfig
 from .nn.seanet import SeanetConfig, SeanetEncoder
 from .ops.lookup import nearest_centroid
@@ -57,6 +65,7 @@ from .weights import (
     acoustic_from_numpy,
     get_acoustic_params,
     get_hubert_params,
+    get_mimi_params,
     get_w2vbert_params,
     hubert_from_numpy,
     w2vbert_from_numpy,
@@ -278,7 +287,7 @@ class AcousticEncoder:
             if audio.dtype != np.int16:
                 audio = audio.astype(np.float32)
             n = audio.shape[-1]
-            _require_min_samples(n, 1, self.config.model_sample_rate, "AcousticEncoder")
+            _require_min_samples(n, 1, self.config.model_sample_rate, type(self).__name__)
             padded = pad_to_bucket(audio, self.buckets, self.config.pad_token or 0)
         return _run_rows(self, self._forward, padded), math.ceil(n / self.hop)
 
@@ -288,6 +297,65 @@ class AcousticEncoder:
             codes, n_frames = self._dispatch(input_batch)
             with span("audiotoken.encode.download"):
                 return codes[:, :, :n_frames].cpu().numpy()
+
+
+class MimiEncoder(AcousticEncoder):
+    """Waveform -> Mimi codes [B, num_codebooks, T] int16 at 12.5 frames a
+    second (kyutai/mimi: SEANet of 64 filters, an 8-layer transformer with a
+    causal window of 250 frames, a split RVQ of 1 semantic and 31 acoustic
+    codebooks of 2048 x 256; ``nn/mimi.py``).
+
+    ``AcousticEncoder``'s entry (``dispatch``, ``__call__``: bucketing,
+    pinned upload, sub-batches, the download, and their spans); the codes
+    of a row of N samples are ceil(N / 1920), transformers'
+    ``get_encoded_length``. Runs at ``highest`` (IEEE f32 linears and
+    convs) and ``high`` (TF32 there; the window attention stays 3xTF32);
+    other policies raise ValueError."""
+
+    PRECISIONS = ("highest", "high")
+
+    def __init__(
+        self,
+        config: MimiEncoderConfig = MimiEncoderConfig(),
+        weights: str = "artifacts",
+        precision: str = "highest",
+        seed: int = 0,
+        device="cuda",
+        buckets=None,
+        mesh=None,
+    ):
+        self.device = mesh_device(device, mesh)
+        self.mesh = mesh
+        self.config = config
+        self.model_cfg = MimiConfig()
+        if not 1 <= config.num_codebooks <= self.model_cfg.num_quantizers:
+            raise ValueError(f"MimiEncoder: num_codebooks {config.num_codebooks} outside "
+                             f"1..{self.model_cfg.num_quantizers}")
+        self.num_q = config.num_codebooks
+        self.set_precision(precision)
+        self.hop = self.model_cfg.hop_length  # 1920 -> 12.5 code frames a second
+        state = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+                 for k, v in get_mimi_params(weights, seed, self.model_cfg).items()}
+        self.model = MimiEncode(self.model_cfg)
+        self.model.load_state_dict(state, strict=True)
+        self.model.to(self.device).eval()
+        self.buckets = buckets or default_buckets(config.model_sample_rate, self.hop)
+        # 32 x 30 s, as AcousticEncoder: SEANet's first stage holds [32, 64,
+        # 720000] f32 activations (5.9 GB each)
+        self.max_device_batch = 32
+
+    def set_precision(self, precision: str):
+        if precision not in self.PRECISIONS:
+            raise ValueError(f"MimiEncoder: precision {precision!r}, expected one of "
+                             f"{self.PRECISIONS}")
+        self.policy = get_policy(precision)
+
+    def _forward(self, audio: torch.Tensor) -> torch.Tensor:
+        """[B, T] f32 or int16 on the device -> codes [B, num_q, T'] int16."""
+        with torch.inference_mode(), self.policy.numerics():
+            if audio.dtype == torch.int16:
+                audio = audio.float() * (1.0 / 32768.0)
+            return self.model(audio, self.num_q).to(torch.int16)
 
 
 class HubertEncoder:

@@ -16,6 +16,12 @@ two terms on unsummed, for the next conv's ``elu_pad`` to add. A 1x1 conv
 reads its input as it is. The numpy initialisers make the same
 draws, in the same order, as the JAX package's, so ``weights="random"``
 gives both packages bit-identical parameters.
+
+The encoder also runs Mimi's SEANet (``nn/mimi.py``): 64 filters, no LSTM
+(``lstm_layers=0``), an identity shortcut (``use_conv_shortcut=False``)
+and zero padding (``pad_mode="constant"``). K1 computes EnCodec's front
+alone, so there every conv, conv_in and the first residual block too,
+takes its input from ``elu_pad``.
 """
 
 from dataclasses import dataclass
@@ -44,9 +50,9 @@ class SeanetConfig:
     residual_kernel_size: int = 3
     dilation_growth_rate: int = 2
     compress: int = 2
-    lstm_layers: int = 2
+    lstm_layers: int = 2  # 0: none
     causal: bool = True
-    pad_mode: str = "reflect"
+    pad_mode: str = "reflect"  # or "constant": zeros
     trim_right_ratio: float = 1.0  # decoder: share of a transposed conv's trim on the right
     use_conv_shortcut: bool = True
 
@@ -64,23 +70,24 @@ class SConv1d(nn.Module):
     """EnCodec causal conv; weight [C_out, C_in, K] (weight norm folded).
 
     ``m(x, residual=r, elu=True)`` convolves ``ELU(x + r)`` under the
-    causal reflect padding; the residual and the ELU are optional."""
+    causal padding (reflect, or zeros under ``pad_mode="constant"``); the
+    residual and the ELU are optional."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1,
-                 dilation: int = 1):
+                 dilation: int = 1, pad_mode: str = "reflect"):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(cout, cin, kernel_size), requires_grad=False)
         self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
-        self.stride, self.dilation = stride, dilation
+        self.stride, self.dilation, self.pad_mode = stride, dilation, pad_mode
 
     def pads(self, length: int) -> Tuple[int, int]:
-        """(left, right) reflect padding of an input of ``length`` samples."""
+        """(left, right) padding of an input of ``length`` samples."""
         return pad_amounts(length, self.weight.shape[-1], self.stride, self.dilation, causal=True)
 
     def forward(self, x: torch.Tensor, residual=None, elu: bool = False) -> torch.Tensor:
         left, right = self.pads(x.shape[-1])
         if residual is not None or elu or left or right:
-            x = elu_pad(x, left, right, residual=residual, elu=elu)
+            x = elu_pad(x, left, right, residual=residual, elu=elu, pad_mode=self.pad_mode)
         return self.conv(x)
 
     def conv(self, x: torch.Tensor) -> torch.Tensor:
@@ -90,7 +97,8 @@ class SConv1d(nn.Module):
 
 
 class ResnetBlock(nn.Module):
-    """ELU -> conv(k, dilation) -> ELU -> conv(1), plus a 1x1 conv shortcut.
+    """ELU -> conv(k, dilation) -> ELU -> conv(1), plus a 1x1 conv shortcut
+    (the identity where ``use_conv_shortcut`` is false).
 
     Takes its input as two terms, x + residual, and returns its own two,
     shortcut and conv2's, unsummed: the consumer's ``elu_pad`` adds them."""
@@ -98,18 +106,20 @@ class ResnetBlock(nn.Module):
     def __init__(self, cfg: SeanetConfig, dim: int, dilation: int):
         super().__init__()
         hidden = dim // cfg.compress
-        self.conv1 = SConv1d(dim, hidden, cfg.residual_kernel_size, dilation=dilation)
-        self.conv2 = SConv1d(hidden, dim, 1)
-        self.shortcut = SConv1d(dim, dim, 1)
+        self.conv1 = SConv1d(dim, hidden, cfg.residual_kernel_size, dilation=dilation,
+                             pad_mode=cfg.pad_mode)
+        self.conv2 = SConv1d(hidden, dim, 1, pad_mode=cfg.pad_mode)
+        self.shortcut = SConv1d(dim, dim, 1) if cfg.use_conv_shortcut else None
 
     def forward(self, x: torch.Tensor, residual=None):
         # x + residual is written out only where the shortcut needs it: a
         # sum, or a strided view (a transposed conv's trimmed output).
         # conv1 goes first, so that its padded input is freed before the
         # shortcut's output is allocated.
-        h, x = elu_pad(x, *self.conv1.pads(x.shape[-1]), residual=residual, keep_input=True)
+        h, x = elu_pad(x, *self.conv1.pads(x.shape[-1]), residual=residual, keep_input=True,
+                       pad_mode=self.conv1.pad_mode)
         h = self.conv1.conv(h)
-        return self.shortcut(x), self.conv2(h, elu=True)
+        return x if self.shortcut is None else self.shortcut(x), self.conv2(h, elu=True)
 
 
 class EncoderStage(nn.Module):
@@ -119,7 +129,7 @@ class EncoderStage(nn.Module):
             ResnetBlock(cfg, dim, cfg.dilation_growth_rate**j)
             for j in range(cfg.num_residual_layers)
         )
-        self.down = SConv1d(dim, 2 * dim, 2 * ratio, stride=ratio)
+        self.down = SConv1d(dim, 2 * dim, 2 * ratio, stride=ratio, pad_mode=cfg.pad_mode)
 
 
 class LSTMLayer(nn.Module):
@@ -135,28 +145,33 @@ class LSTMLayer(nn.Module):
 class SeanetEncoder(nn.Module):
     """Waveform [B, T] -> latents [B, ceil(T / hop), dimension].
 
-    The front kernel K1 is written for this configuration's front (one
-    channel in, 32 filters, k7 conv_in, one k3 residual block with a conv
-    shortcut), and the convs are causal with reflect padding, so other
-    configurations are refused.
+    The front is kernel K1 where the configuration's front is the one K1
+    computes (EnCodec's: one channel in, 32 filters, k7 conv_in, one k3
+    residual block with a conv shortcut, reflect padding); any other front
+    (Mimi's) runs conv_in and the first stage as the later stages run. The
+    convs are causal; another configuration is refused.
     """
+
+    #: the front kernel K1 computes
+    K1_FRONT = (1, 32, 7, 3, 2, 1, True, "reflect")
 
     def __init__(self, cfg: SeanetConfig = SeanetConfig()):
         super().__init__()
+        if not cfg.causal or cfg.pad_mode not in ("reflect", "constant"):
+            raise ValueError(f"SeanetEncoder: the port's convs are causal, reflect- or "
+                             f"zero-padded (causal {cfg.causal}, pad_mode {cfg.pad_mode!r})")
         front = (cfg.channels, cfg.num_filters, cfg.kernel_size, cfg.residual_kernel_size,
-                 cfg.compress, cfg.num_residual_layers, cfg.use_conv_shortcut,
-                 cfg.causal, cfg.pad_mode)
-        if front != (1, 32, 7, 3, 2, 1, True, True, "reflect"):
-            raise ValueError(f"SeanetEncoder: front {front} is not the one kernel K1 computes")
+                 cfg.compress, cfg.num_residual_layers, cfg.use_conv_shortcut, cfg.pad_mode)
+        self.k1 = front == self.K1_FRONT
         self.cfg = cfg
-        self.conv_in = SConv1d(cfg.channels, cfg.num_filters, cfg.kernel_size)
+        self.conv_in = SConv1d(cfg.channels, cfg.num_filters, cfg.kernel_size, pad_mode=cfg.pad_mode)
         stages, dim = [], cfg.num_filters
         for ratio in reversed(cfg.ratios):
             stages.append(EncoderStage(cfg, dim, ratio))
             dim *= 2
         self.stages = nn.ModuleList(stages)
         self.lstm = nn.ModuleList(LSTMLayer(dim) for _ in range(cfg.lstm_layers))
-        self.conv_out = SConv1d(dim, cfg.dimension, cfg.last_kernel_size)
+        self.conv_out = SConv1d(dim, cfg.dimension, cfg.last_kernel_size, pad_mode=cfg.pad_mode)
 
     def front_weights(self):
         """K1's weights: conv_in, then the first residual block's convs."""
@@ -168,15 +183,20 @@ class SeanetEncoder(nn.Module):
         # The kernels compute in f32; under a bf16 policy the plain convs
         # run on bf16 operands (SConv1d.conv casts the weights to x's dtype).
         dtype = x.dtype
-        h, r = seanet_front(x.float(), *self.front_weights()).to(dtype), None  # [B, 32, T]
+        if self.k1:
+            h = seanet_front(x.float(), *self.front_weights()).to(dtype)  # [B, 32, T]
+        else:
+            h = self.conv_in(x[:, None, :])
+        r = None
         for si, stage in enumerate(self.stages):
-            if si > 0:
+            if si > 0 or not self.k1:
                 for res in stage.res:
                     h, r = res(h, r)
             h, r = stage.down(h, residual=r, elu=True), None
-        layers = [(l.wih, l.whh, l.bih, l.bhh) for l in self.lstm]
-        h = lstm_skip(layers, h.transpose(1, 2).float()).to(dtype)  # [B, T', C]
-        h = self.conv_out(h.transpose(1, 2), elu=True)
+        if len(self.lstm):
+            layers = [(l.wih, l.whh, l.bih, l.bhh) for l in self.lstm]
+            h = lstm_skip(layers, h.transpose(1, 2).float()).to(dtype).transpose(1, 2)  # [B, C, T']
+        h = self.conv_out(h, elu=True)
         return h.transpose(1, 2)  # [B, T', dimension]
 
 

@@ -15,27 +15,40 @@ from . import _build
 from .conv import pad1d_reflect
 
 
-def elu_pad_plain(x, left, right, residual=None, elu=True, keep_input=False):
+#: the pad modes and the kernel's entry of each, by element type
+_ENTRIES = {"reflect": {t: f"elu_pad_{s}" for t, s in _build.DTYPE_SUFFIX.items()},
+            "constant": {torch.float32: "elu_pad_zero_f32"}}
+
+
+def elu_pad_plain(x, left, right, residual=None, elu=True, keep_input=False,
+                  pad_mode="reflect"):
     """x [B, C, T] -> [B, C, T + left + right]: ``pad1d_reflect(F.elu(x +
-    residual), left, right)``, the residual and the ELU optional; with
-    ``keep_input`` also ``x + residual`` contiguous."""
+    residual), left, right)`` (``F.pad`` with zeros under ``pad_mode=
+    "constant"``), the residual and the ELU optional; with ``keep_input``
+    also ``x + residual`` contiguous."""
     v = x if residual is None else x + residual
-    out = pad1d_reflect(F.elu(v) if elu else v, left, right)
+    a = F.elu(v) if elu else v
+    out = F.pad(a, (left, right)) if pad_mode == "constant" else pad1d_reflect(a, left, right)
     return (out, v.contiguous()) if keep_input else out
 
 
-def elu_pad(x, left, right, residual=None, elu=True, keep_input=False):
+def elu_pad(x, left, right, residual=None, elu=True, keep_input=False, pad_mode="reflect"):
     """x [B, C, T] (any strides) -> out [B, C, T + left + right] contiguous,
     as :func:`elu_pad_plain`; with ``keep_input``, (out, x + residual
     contiguous), which is ``x`` itself where there is nothing to add and x
     is contiguous already. ``residual`` is a contiguous [B, C, T] tensor of
-    x's dtype. Launches the kernel for a CUDA ``x`` in f32 or bf16."""
+    x's dtype. Launches the kernel for a CUDA ``x`` in f32 or bf16 (f32
+    alone under ``pad_mode="constant"``)."""
+    if pad_mode not in _ENTRIES:
+        raise ValueError(f"elu_pad: pad_mode {pad_mode!r}, expected one of {sorted(_ENTRIES)}")
     if x.device.type == "cpu":
-        return elu_pad_plain(x, left, right, residual, elu, keep_input)
+        return elu_pad_plain(x, left, right, residual, elu, keep_input, pad_mode)
     if x.device.type != "cuda":
         raise ValueError(f"elu_pad: unsupported device {x.device}")
-    if x.dtype not in _build.DTYPE_SUFFIX:
-        raise ValueError(f"elu_pad: dtype {x.dtype}, the kernel takes bf16 or f32")
+    entry = _ENTRIES[pad_mode].get(x.dtype)
+    if entry is None:
+        raise ValueError(f"elu_pad: dtype {x.dtype}, the kernel takes "
+                         f"{' or '.join(str(t) for t in _ENTRIES[pad_mode])} under {pad_mode!r}")
     if x.dim() != 3 or 0 in x.shape:
         raise ValueError(f"elu_pad: x of shape {tuple(x.shape)}, expected [B, C, T] not empty")
     if left < 0 or right < 0:
@@ -47,7 +60,7 @@ def elu_pad(x, left, right, residual=None, elu=True, keep_input=False):
     keep = None
     if keep_input and (residual is not None or not x.is_contiguous()):
         keep = torch.empty((B, C, T), dtype=x.dtype, device=x.device)
-    _build.launch(f"elu_pad_{_build.DTYPE_SUFFIX[x.dtype]}", x.device, x, residual, out, keep,
+    _build.launch(entry, x.device, x, residual, out, keep,
                   B, C, T, left, right, *x.stride(), int(elu))
     elu_pad.launches += 1
     if keep_input:

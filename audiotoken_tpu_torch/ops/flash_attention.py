@@ -27,7 +27,14 @@ the kernel's instantiation without K4's terms); in f32 it is K4's 3xTF32 kernel
 without its terms and without scaling the scores again
 (``flash_attention_plain_f32`` in ``csrc/flash_attention.cu``).
 
-Both take the JAX kernel's ``precision``, by the port's names (the keys of
+:func:`flash_attention_window` is causal attention within a band of
+``window`` keys (Mimi's encoder transformer), in K4's 3xTF32 form
+(``flash_attention_window_kernel`` in ``csrc/flash_attention.cu``); it
+replaces no TPU kernel and takes no ``precision``: it runs 3xTF32 under
+every policy. :func:`flash_attention_window_plain` is its twin, dense
+scores with the band as a mask, in IEEE f32.
+
+K4 and K5 take the JAX kernel's ``precision``, by the port's names (the keys of
 ``runtime/precision.py:TF32``). On f32 CUDA tensors ``"highest"`` launches
 the 3xTF32 kernel and ``"default"`` the one-pass kernel, every product on
 operands rounded once to TF32 (``flash_attention_*_f32_1pass``, counted in
@@ -298,3 +305,44 @@ def flash_attention_plain(q, k, v, precision: str = "highest"):
 
 flash_attention_plain.launches = 0  # the bf16 kernel's and the f32 3xTF32 kernel's
 flash_attention_plain.launches_1pass = 0  # the f32 one-pass kernel's
+
+
+def flash_attention_window_plain(q, k, v, window: int):
+    """q, k, v [B, H, T, dh] f32 -> ``softmax(q k^T / sqrt(dh) + band) v``
+    [B, H, T, dh], key j visible to query i iff ``i - window < j <= i``:
+    dense scores with the band as a mask, the products in IEEE f32 (TF32
+    off)."""
+    T, dh = q.shape[-2:]
+    t = torch.arange(T, device=q.device)
+    band = (t[None, :] <= t[:, None]) & (t[None, :] > t[:, None] - window)  # [T (q), T (k)]
+    with tf32_numerics(False):
+        s = torch.matmul(q, k.transpose(-1, -2)) * dh**-0.5
+        s = s.masked_fill(~band, float("-inf"))
+        return torch.matmul(torch.softmax(s, dim=-1), v)
+
+
+def flash_attention_window(q, k, v, window: int):
+    """The function of :func:`flash_attention_window_plain`. For CUDA f32
+    tensors (contiguous, dh = 64) it launches the 3xTF32 window kernel,
+    which walks only the key tiles that reach a block's band; for CPU
+    tensors it runs the plain version."""
+    if window < 1:
+        raise ValueError(f"flash_attention_window: window {window}, expected >= 1")
+    if q.device.type == "cpu":
+        return flash_attention_window_plain(q, k, v, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_window: unsupported device {q.device}")
+    B, H, T, dh = q.shape
+    if dh != KERNEL_DH:
+        raise ValueError(f"flash_attention_window: head size {dh}, the kernel takes {KERNEL_DH}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.check_tensor(t, name, (B, H, T, dh), torch.float32, q.device, vector_loads=True)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    _build.launch("flash_attention_window_f32", q.device, q, k, v, out, B * H, T, window)
+    flash_attention_window.launches += 1
+    return out
+
+
+flash_attention_window.launches = 0

@@ -1,6 +1,9 @@
 """Model parameters: a converted store, the upstream checkpoints, or
 seeded random ones.
 
+``get_mimi_params`` returns the state dict of ``nn/mimi.py:MimiEncode``
+(numpy), from kyutai/mimi's checkpoint (``"artifacts"``, ``convert/mimi.py``)
+or a seeded draw (``"random"``).
 ``get_acoustic_params``, ``get_hubert_params``, ``get_w2vbert_params``,
 ``get_semantic_gpt_params`` and ``get_bark_fine_params`` return the JAX package's parameter trees
 (numpy, conv kernels [K, C_in, C_out], linear kernels [in, out]); the
@@ -51,6 +54,26 @@ def get_acoustic_params(weights: str = "artifacts", seed: int = 0):
     if not os.path.exists(path):
         raise FileNotFoundError(f"no acoustic.npz under {weights}")
     return load_params(path)
+
+
+def get_mimi_params(weights: str = "artifacts", seed: int = 0, cfg=None):
+    """``MimiEncode``'s state dict as numpy f32 arrays: from kyutai/mimi's
+    ``model.safetensors`` through ``configs.ARTIFACTS["mimi"]``
+    (``"artifacts"``) or ``nn/mimi.py:init_params`` (``"random"``), for
+    ``cfg`` (a ``nn/mimi.py:MimiConfig``, the published one by default).
+    Any other ``weights`` raises ``ValueError``."""
+    from .nn.mimi import MimiConfig, init_params
+
+    cfg = cfg or MimiConfig()
+    if weights == "artifacts":
+        from .configs import ARTIFACTS
+        from .convert.checkpoints import load_torch_sd
+        from .convert.mimi import convert_mimi
+
+        return convert_mimi(load_torch_sd(ARTIFACTS["mimi"].resolve()), cfg)
+    if weights == "random":
+        return init_params(np.random.default_rng(seed), cfg)
+    raise ValueError(f"get_mimi_params: weights {weights!r}, expected 'random' or 'artifacts'")
 
 
 def _t(a) -> torch.Tensor:

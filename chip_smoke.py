@@ -110,6 +110,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      printed; timed beside the 3-pass kernel, the twin and SDPA in f32 with
      the TF32 switches on (naming the backend it took), with its bound in
      one TF32 pass;
+  4g. Mimi's encode path (``nn/mimi.py``, no JAX counterpart): every
+     ``elu_pad`` launch of one B=32 x 30 s forward in its zero mode
+     (``MIMI_ELU_PAD_LAUNCHES``) bit for bit against its plain twin, the
+     window kernel at [32, 8, 750, 64] in a window of 250 within
+     ``KERNEL_ATOL`` of its plain twin (SDPA given the band as a boolean
+     ``attn_mask`` beside it), K3 at D = 256 (1 + 31 codebooks of 2048 x
+     256 over 12,000 rows) by code agreement, each timed beside its twin
+     with its bound; then ``AudioToken(Tokenizers.mimi)``'s encoder at 8
+     and 32 x 30 s: 8 window launches, 2 of K3 and 14 of ``elu_pad`` a
+     forward (counts zeroed just before), neither K1 nor K2, the RTFx and
+     peak memory, and a profiled forward;
   4d. the semantic_s main path: ``AudioToken(Tokenizers.semantic_s)``
      encode of WAV files (one of 90 s, in 30 s chunks), then
      ``HubertEncoder`` at 8 and 32 x 30 s of int16 PCM in both attention
@@ -269,6 +280,7 @@ from audiotoken_tpu_torch.io.wavfile import read_wav, write_wav  # noqa: E402
 from audiotoken_tpu_torch.nn.bark_fine import BarkFineGenerator  # noqa: E402
 from audiotoken_tpu_torch.nn.gpt import GPT, GPTConfig, GPTSampler  # noqa: E402
 from audiotoken_tpu_torch.nn.hubert import feature_lengths  # noqa: E402
+from audiotoken_tpu_torch.nn.mimi import MimiConfig  # noqa: E402
 from audiotoken_tpu_torch.ops import _build  # noqa: E402
 from audiotoken_tpu_torch.ops.attention import padding_bias  # noqa: E402
 from audiotoken_tpu_torch.ops.attn_ablation import (  # noqa: E402
@@ -295,6 +307,8 @@ from audiotoken_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_relkey,
     flash_attention_relkey_bf16,
     flash_attention_relkey_plain,
+    flash_attention_window,
+    flash_attention_window_plain,
     noncausal_attention_plain,
 )
 from audiotoken_tpu_torch.ops.lookup import nearest_centroid  # noqa: E402
@@ -330,7 +344,7 @@ DECODE_KERNELS = (flash_attention_plain, decode_attention, decode_qkv, decode_ff
 # decode_ffn_tp, K7's tensor-parallel entry, runs on phase 7's tp=2 sampler
 # flash_attention_relkey_bf16, K4's bf16 form, runs on the public op's bf16 input (3f)
 KERNELS = (ACOUSTIC_KERNELS + (flash_attention_relkey,) + DECODE_KERNELS
-           + (decode_ffn_tp, flash_attention_relkey_bf16))
+           + (decode_ffn_tp, flash_attention_relkey_bf16, flash_attention_window))
 W2V_BLOCKS = 19  # conformer blocks a semantic_m forward runs, one K4 launch each
 # Every elu_pad launch of one SEANet forward at B=32 x 30 s, in its order:
 # (channels, samples, layout, (left, right), residual, elu, keep_input).
@@ -368,6 +382,26 @@ ELU_PAD_LAUNCHES = {
         (32, 720000, 0, (6, 0), True, True, False),      # conv_out
     ],
 }
+# Every elu_pad launch of one Mimi forward at B=32 x 30 s (4g), in its
+# order and in ELU_PAD_LAUNCHES's form; every one pads zeros
+# (pad_mode="constant") on a contiguous x
+MIMI_ELU_PAD_LAUNCHES = [
+    (1, 720000, 0, (6, 0), False, False, False),   # conv_in on the waveform
+    (64, 720000, 0, (2, 0), False, True, True),    # stage 1: conv1
+    (32, 720000, 0, (0, 0), False, True, False),   # conv2
+    (64, 720000, 0, (4, 0), True, True, False),    # down conv, the block's sum
+    (128, 180000, 0, (2, 0), False, True, True),   # stage 2
+    (64, 180000, 0, (0, 0), False, True, False),
+    (128, 180000, 0, (5, 0), True, True, False),
+    (256, 36000, 0, (2, 0), False, True, True),    # stage 3
+    (128, 36000, 0, (0, 0), False, True, False),
+    (256, 36000, 0, (6, 0), True, True, False),
+    (512, 6000, 0, (2, 0), False, True, True),     # stage 4
+    (256, 6000, 0, (0, 0), False, True, False),
+    (512, 6000, 0, (8, 0), True, True, False),
+    (1024, 750, 0, (2, 0), False, True, False),    # conv_out
+]
+MIMI_RVQ_LAUNCHES = 2  # K3 a Mimi forward: the semantic codebook, then the 31 acoustic
 HUBERT_LAYERS = 11  # layers a semantic_s forward runs, one K4 launch each ("flash")
 GPT_LAYERS, FINE_LAYERS = 12, 24  # K6/K7 launches per decode step, K5 per fine pass
 PIPE_NEW_TOKENS = 512  # 4f's AR tokens a row: half the default, to keep the script's time
@@ -1830,6 +1864,191 @@ def phase3g_flash_onepass(dev):
     return res
 
 
+def _mimi_elu_pad(dev, B):
+    """4g's elu_pad: every launch of one Mimi forward, zero mode, f32."""
+    say(f"[4g] elu_pad zero mode: every launch of one Mimi forward at B={B}: shape, pads, "
+        f"residual, elu, keep written; GB, kernel ms, share of 3.35 TB/s, twin ms")
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0}
+    largest = None
+    for i, (C, T, layout, (left, right), has_res, elu, keep) in enumerate(MIMI_ELU_PAD_LAUNCHES):
+        x = _elu_pad_input(dev, B, C, T, layout, torch.float32, 100 + 2 * i)
+        r = _elu_pad_input(dev, B, C, T, 0, torch.float32, 101 + 2 * i) if has_res else None
+        n0 = elu_pad.launches
+        out = elu_pad(x, left, right, residual=r, elu=elu, keep_input=True, pad_mode="constant")
+        ref = elu_pad_plain(x, left, right, r, elu, keep_input=True, pad_mode="constant")
+        torch.cuda.synchronize()
+        if elu_pad.launches != n0 + 1:
+            raise AssertionError(f"elu_pad launched {elu_pad.launches - n0} times")
+        if not (torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])):
+            raise AssertionError(f"elu_pad's zero mode differs from its twin at Mimi launch {i}: "
+                                 f"[{B}, {C}, {T}], pads ({left}, {right})")
+        written = keep and out[1] is not x
+        moved = 4 * B * C * (T * (1 + has_res + written) + T + left + right)
+        del out, ref
+
+        def run(fn):
+            return fn(x, left, right, r, elu, keep, pad_mode="constant")
+
+        ms = cuda_ms(lambda: run(elu_pad))
+        plain_ms = cuda_ms(lambda: run(elu_pad_plain))
+        b = bound(0, moved, "f32")
+        say(f"[4g]   {str([B, C, T]):16s} ({left}, {right}) {int(has_res)} {int(elu)} "
+            f"{int(written)}: {moved / 1e9:.3f} GB  kernel {ms:.4f} ms  "
+            f"{100 * b['bound_ms'] / ms:.1f} %  twin {plain_ms:.4f} ms")
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b["bound_ms"]),
+                         ("bytes", moved)):
+            total[key] += val
+        if largest is None or moved >= largest[3]:
+            largest = (ms, plain_ms, b, moved)
+        del x, r
+        torch.cuda.empty_cache()
+    ms, plain_ms, b, moved = largest
+    say(f"[4g] elu_pad zero mode: largest launch {moved / 1e9:.3f} GB in {ms:.4f} ms "
+        f"({100 * b['bound_ms'] / ms:.1f} % of 3.35 TB/s, twin {plain_ms:.4f} ms); the forward's "
+        f"{len(MIMI_ELU_PAD_LAUNCHES)} launches {total['bytes'] / 1e9:.3f} GB in "
+        f"{total['ms']:.4f} ms ({100 * total['bound_ms'] / total['ms']:.1f} %, twin "
+        f"{total['plain_ms']:.4f} ms)")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **b,
+                **{f"{k}_forward": total[k] for k in ("ms", "plain_ms", "bound_ms")})
+
+
+def _mimi_window(dev, B, cfg):
+    """4g's window kernel at the forward's shape, beside its twin and SDPA
+    given the band as a boolean ``attn_mask``."""
+    H, T, dh, W = cfg.num_attention_heads, 750, cfg.head_dim, cfg.sliding_window
+    q, k, v = (_randn(dev, (B, H, T, dh), torch.float32, 200 + i) for i in range(3))
+    idx = torch.arange(T, device=dev)
+    band = (idx[None, :] <= idx[:, None]) & (idx[None, :] > idx[:, None] - W)  # [T (q), T (k)]
+    n0 = flash_attention_window.launches
+    out = flash_attention_window(q, k, v, W)
+    torch.cuda.synchronize()
+    if flash_attention_window.launches != n0 + 1:
+        raise AssertionError("flash_attention_window did not launch its kernel")
+    err = (out - flash_attention_window_plain(q, k, v, W)).abs().max().item()
+    lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=band)  # noqa: E731
+    lib_err = (out - lib()).abs().max().item()
+    del out
+    ms = device_ms(lambda: flash_attention_window(q, k, v, W))
+    plain_ms = device_ms(lambda: flash_attention_window_plain(q, k, v, W), n=5)
+    library_ms = device_ms(lib)
+    backend = top_kernel(lib)
+    pairs = sum(min(i + 1, W) for i in range(T))  # (query, key) pairs in the band, a head
+    flops, moved = 4 * dh * pairs * B * H, 4 * nbytes(q)
+    b = bound(flops, moved, "tf32x3")
+    say(f"[4g] window attention [{B}, {H}, {T}, {dh}], window {W} ({pairs} pairs a head): "
+        f"max|kernel-plain| {err:.3e}  max|kernel-SDPA| {lib_err:.3e}  kernel {ms:.4f} ms  "
+        f"plain {plain_ms:.4f} ms  SDPA (boolean band, TF32 off) {library_ms:.4f} ms "
+        f"({backend[:60]})  bound {b['bound_ms']:.4f} ms ({b['bound_by']}; "
+        f"{100 * b['bound_ms'] / ms:.1f} %)")
+    if not err <= KERNEL_ATOL:
+        raise AssertionError(f"the window kernel differs from its plain version by {err}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                library_max_abs_err=lib_err, **b,
+                bound_f32_ms=bound(flops, moved, "f32")["bound_ms"])
+
+
+def _mimi_rvq(dev, B, cfg):
+    """4g's K3 at D = 256: the forward's two launches (1 semantic, 31
+    acoustic codebooks of 2048 x 256) over its 375 code frames a row."""
+    C, D, rows = cfg.codebook_size, cfg.codebook_dim, B * 375
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    split = rvq_plan(rows, sms, 128)
+    x = _randn(dev, (B, 375, D), torch.float32, 300, 2.0)
+    res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None, "agreement": 1.0}
+    flops = moved = 0
+    for S in (cfg.num_semantic_quantizers, cfg.num_quantizers - cfg.num_semantic_quantizers):
+        cb = _randn(dev, (S, C, D), torch.float32, 301 + S)
+        n0 = rvq_encode.launches
+        out = rvq_encode(cb, x, S)
+        torch.cuda.synchronize()
+        if rvq_encode.launches != n0 + 1:
+            raise AssertionError("rvq_encode did not launch K3")
+        ref = rvq_encode_plain(cb, x, S)
+        agree = (out == ref).float().mean().item()
+        recon = lambda c: sum(cb[j][c[:, j]] for j in range(S))  # noqa: E731,B023
+        err = (recon(out.long()) - recon(ref.long())).abs().max().item()
+        ms = cuda_ms(lambda: rvq_encode(cb, x, S))  # noqa: B023
+        plain_ms = cuda_ms(lambda: rvq_encode_plain(cb, x, S))  # noqa: B023
+        f, m = 2 * rows * S * C * D, 2 * nbytes(x) + nbytes(cb, out)
+        b = bound(f, m, "tf32x3")
+        say(f"[4g] K3 rvq {S} x {C} x {D} over [{B}, 375, {D}] (split {split}): code agreement "
+            f"{agree:.6f}  max|recon diff| {err:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+            f"bound {b['bound_ms']:.3f} ms in 3xTF32 ({100 * b['bound_ms'] / ms:.1f} %)")
+        if not agree >= RVQ_AGREEMENT:
+            raise AssertionError(f"K3 at D = {D} agrees with its plain version at {agree}")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["agreement"] = min(res["agreement"], agree)
+        res["ms"] += ms
+        res["plain_ms"] += plain_ms
+        flops, moved = flops + f, moved + m
+        del cb, out, ref
+    b = bound(flops, moved, "tf32x3")
+    say(f"[4g] K3 at D = {D}, both launches: kernel {res['ms']:.3f} ms  plain "
+        f"{res['plain_ms']:.3f} ms  bound {b['bound_ms']:.3f} ms ({100 * b['bound_ms'] / res['ms']:.1f} %)")
+    return {**res, **b, "bound_f32_ms": bound(flops, moved, "f32")["bound_ms"]}
+
+
+def phase4g_mimi(dev, B=32):
+    """Mimi's encode path: its three kernels at the shapes of one B x 30 s
+    forward against their plain twins (``elu_pad``'s zero mode bit for bit,
+    the window kernel within KERNEL_ATOL, K3 at D = 256 by code agreement),
+    each timed beside its twin with its bound; then ``AudioToken``'s Mimi
+    encoder at published widths, 8 and 32 rows of 30 s, with every count
+    zeroed just before a forward: one window launch a layer,
+    ``MIMI_RVQ_LAUNCHES`` of K3, one ``elu_pad`` for each entry of
+    ``MIMI_ELU_PAD_LAUNCHES``, and neither K1 nor K2. Returns (launches a
+    forward, the kernels line's entries)."""
+    cfg = MimiConfig()
+    with get_policy("highest").numerics():
+        res = {"elu_pad_zero": _mimi_elu_pad(dev, B), "flash_attention_window":
+               _mimi_window(dev, B, cfg), "rvq_d256": _mimi_rvq(dev, B, cfg)}
+    torch.cuda.empty_cache()
+
+    at = AudioToken(Tokenizers.mimi, num_codebooks=cfg.num_quantizers, weights="random",
+                    device=dev)
+    at.load_encoder()
+    enc = at.encoder
+    rng = np.random.default_rng(9)
+    pcm = (rng.standard_normal((B, 30 * SR)) * 3000).clip(-32768, 32767).astype(np.int16)
+    enc(pcm[:8])  # warm up cuDNN's algorithm choice and the allocator
+    torch.cuda.synchronize()
+    want = {"flash_attention_window": cfg.num_hidden_layers, "rvq_encode": MIMI_RVQ_LAUNCHES,
+            "elu_pad": len(MIMI_ELU_PAD_LAUNCHES), "seanet_front": 0, "lstm_layer": 0}
+    counted = (flash_attention_window, rvq_encode, elu_pad, seanet_front, lstm_layer)
+    for rows in sorted({min(8, B), B}):
+        for kern in counted:
+            kern.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        codes = enc(pcm[:rows])
+        torch.cuda.synchronize()
+        got = {k.__name__: k.launches for k in counted}
+        if got != want:
+            raise AssertionError(f"a Mimi forward at B={rows} launched {got}, expected {want}")
+        if codes.shape != (rows, cfg.num_quantizers, 375) or codes.dtype != np.int16:
+            raise AssertionError(f"Mimi codes {codes.shape} {codes.dtype}")
+        if codes.min() < 0 or codes.max() >= cfg.codebook_size:
+            raise AssertionError(f"Mimi codes outside [0, {cfg.codebook_size})")
+    peak = torch.cuda.max_memory_allocated(dev)
+    say(f"[4g] Mimi forward at B={min(8, B)} and {B} x 30 s: launches {got} (counts zeroed before each); "
+        f"peak {peak / 2**30:.2f} GiB at B={B}")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc(pcm)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    say(f"[4g] MimiEncoder B={B} x 30 s int16: median wall {wall * 1e3:.1f} ms (runs "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}), RTFx {B * 30.0 / wall:.1f}")
+    say(f"[4g] MimiEncoder B={B} profiled: {device_split(lambda: enc(pcm))}")
+    del at, enc
+    torch.cuda.empty_cache()
+    counts = {"flash_attention_window": want["flash_attention_window"],
+              "rvq_encode_d256": want["rvq_encode"], "elu_pad_zero": want["elu_pad"]}
+    return counts, res
+
+
 def phase4d_semantic_s(dev, tmp):
     """The semantic_s entry points; returns K4's launch count, the facade
     (its seed-0 encoder is reused by phase 5d) and the default form's
@@ -2988,6 +3207,8 @@ def main():
         k4_bf16_counts, k4_bf16 = phase3f_flash_bf16(dev)
         res.update(k4_bf16)
         res.update(phase3g_flash_onepass(dev))
+    mimi_counts, mimi_res = phase4g_mimi(dev)
+    res.update(mimi_res)
     with tempfile.TemporaryDirectory() as tmp:
         counts, device_rtfx = phase4_main_path(dev, tmp)
         keep = {}
@@ -3023,6 +3244,7 @@ def main():
         f"elu_pad: {decode_counts.pop('elu_pad')}")
     counts.update(decode_counts)
     counts.update(k4_bf16_counts)
+    counts.update(mimi_counts)
     rows = [
         ("seanet_front", "seanet_front", "audiotoken_tpu_torch/csrc/seanet_front.cu",
          "audiotoken_tpu/ops/seanet_pallas.py:124"),
@@ -3074,6 +3296,12 @@ def main():
         ("flash_attention_plain_f32_1pass", "flash_attention_plain_f32_1pass",
          "audiotoken_tpu_torch/csrc/flash_attention_tf32.cu",
          "audiotoken_tpu/ops/flash_attention.py:287"),
+        # Mimi's encode path (4g), which the JAX package does not have: its
+        # windowed attention, K3 at D = 256 and elu_pad's zero mode
+        ("flash_attention_window", "flash_attention_window",
+         "audiotoken_tpu_torch/csrc/flash_attention.cu", "none"),
+        ("rvq_d256", "rvq_encode_d256", "audiotoken_tpu_torch/csrc/rvq.cu", "none"),
+        ("elu_pad_zero", "elu_pad_zero", "audiotoken_tpu_torch/csrc/elu_pad.cu", "none"),
     ]
     # the TPU script's ablations (:108), its one-pass kernel (:157), and for
     # full its baseline, the Pallas kernel of K5's tiled form

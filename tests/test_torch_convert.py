@@ -10,8 +10,10 @@ converter's bit for bit. The hub route is patched to raise in every test
 that resolves ``"artifacts"``, so that none reaches the network.
 """
 
+import dataclasses
 import os
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -52,6 +54,7 @@ from audiotoken_tpu_torch.nn.bark_fine import BarkFineConfig  # noqa: E402
 from audiotoken_tpu_torch.nn.conformer import W2VBertConfig  # noqa: E402
 from audiotoken_tpu_torch.nn.gpt import GPTConfig  # noqa: E402
 from audiotoken_tpu_torch.nn.hubert import HubertConfig  # noqa: E402
+from test_torch_mimi import TINY, _pcm, _ref_cfg, encoders, port, ref  # noqa: E402,F401
 from test_torch_offline import offline as go_offline  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -682,3 +685,76 @@ def test_chip_smoke_nanogpt_builder_inverts_the_converter():
         assert_tree_equal(gpt.convert_gpt(sd, cfg), tree)
         assert_tree_equal(jax_gpt.convert_gpt(sd, JaxGPTConfig(**TINY_GPT, n_layer=2, bias=bias)),
                           tree)
+
+
+# --- Mimi: the converter against transformers' MimiModel (fixtures and
+# helpers of test_torch_mimi.py) -------------------------------------------
+
+
+def _randomize(model, seed):
+    """Every parameter of a transformers ``MimiModel`` drawn at fan-in scale,
+    LayerNorms near 1, LayerScale at 0.3, codebook usage in [0.5, 2]."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("layer_scale.scale"):
+                p.fill_(0.3)
+            elif "layernorm" in name:
+                p.copy_((1.0 if name.endswith("weight") else 0.0) + 0.1 * torch.randn(p.shape, generator=g))
+            elif p.dim() == 1:
+                p.copy_(0.02 * torch.randn(p.shape, generator=g))
+            else:
+                p.copy_(torch.randn(p.shape, generator=g) / np.sqrt(p[0].numel()))
+        for name, b in model.named_buffers():
+            if name.endswith("cluster_usage"):
+                b.copy_(0.5 + 1.5 * torch.rand(b.shape, generator=g))
+
+
+def test_transformers_mimi_is_the_anchor(port, monkeypatch):
+    """A tiny ``transformers.MimiModel`` with its own random weights, 1 s of
+    audio (25 frames, inside the published 250-frame window): the reference
+    gives ``MimiModel.encode``'s codes, and the port through
+    ``convert/mimi.py`` gives them on every whole frame."""
+    transformers = pytest.importorskip("transformers")
+    from audiotoken_tpu_torch.convert.mimi import convert_mimi
+
+    hf_cfg = transformers.MimiConfig(
+        num_filters=8, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+        num_key_value_heads=4, head_dim=8, intermediate_size=64, codebook_size=64,
+        codebook_dim=16, vector_quantization_hidden_dimension=16, num_quantizers=4,
+        upsample_groups=32)
+    torch.manual_seed(0)
+    hf = transformers.MimiModel(hf_cfg).eval()
+    _randomize(hf, 1)
+    cfg = _ref_cfg(window=hf_cfg.sliding_window)
+    pcm = _pcm(2, 24_000, 2)
+    wav = torch.from_numpy(pcm).float() / 32768.0
+    req = SimpleNamespace(batch=pcm, lengths=[24_000, 24_000])
+    # codebooks the audio spreads over: the reference's fit, handed to the model
+    state = convert_mimi({k: v.numpy() for k, v in hf.state_dict().items()}, TINY)
+    w = {"encoder": {k: torch.from_numpy(v) for k, v in state.items() if "codebooks" not in k}}
+    books = ref.fit(cfg, {"path": "encode"}, w, [req], 3, "cpu")
+    quantizer = hf.quantizer
+    for kind, cb in (("semantic", books["semantic_codebooks"]), ("acoustic", books["acoustic_codebooks"])):
+        rvq = getattr(quantizer, f"{kind}_residual_vector_quantizer")
+        for layer, e in zip(rvq.layers, cb):
+            layer.codebook.embed_sum.copy_(e * layer.codebook.cluster_usage[:, None])
+            layer.codebook._embed = None
+    with torch.inference_mode():
+        want = hf.encode(wav[:, None, :]).audio_codes.numpy()
+    assert want.shape == (2, 4, int(hf.get_encoded_length(torch.tensor(24_000))))
+    state = {k: torch.from_numpy(v) for k, v in
+             convert_mimi({k: v.numpy() for k, v in hf.state_dict().items()}, TINY).items()}
+    w = {"encoder": {k: v for k, v in state.items() if "codebooks" not in k},
+         "semantic_codebooks": state["semantic_codebooks"],
+         "acoustic_codebooks": state["acoustic_codebooks"]}
+    wide = dataclasses.replace(TINY, sliding_window=hf_cfg.sliding_window)
+    monkeypatch.setattr(encoders, "MimiConfig", lambda: wide)
+    codes = port(w)(pcm, np.asarray(req.lengths, np.int32))
+    with torch.inference_mode():
+        mine = ref.encode({**w["encoder"], **w}, cfg, wav, 4).numpy()
+    assert np.array_equal(mine, want)
+    # the program's last, partial frame sees its bucket's zeros (24,960 samples)
+    whole = 24_000 // TINY.hop_length
+    assert np.array_equal(codes[:, :, :whole], want[:, :, :whole])
+    assert len(np.unique(want[:, 0])) > want[:, 0].size // 3

@@ -306,10 +306,12 @@ def test_chip_smoke_lists_every_launch_of_a_forward(monkeypatch, model):
 
     calls = []
 
-    def recorded(x, left, right, residual=None, elu=True, keep_input=False):
+    def recorded(x, left, right, residual=None, elu=True, keep_input=False, pad_mode="reflect"):
+        assert pad_mode == "reflect"  # EnCodec's pads
         calls.append((x.shape[1], 30 * x.shape[2], _layout(x), (left, right),
                       residual is not None, elu, keep_input))
-        return elu_pad(x, left, right, residual=residual, elu=elu, keep_input=keep_input)
+        return elu_pad(x, left, right, residual=residual, elu=elu, keep_input=keep_input,
+                       pad_mode=pad_mode)
 
     monkeypatch.setattr(seanet, "elu_pad", recorded)
     with torch.inference_mode():
