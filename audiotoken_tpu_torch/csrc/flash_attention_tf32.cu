@@ -95,6 +95,8 @@
 #include <math_constants.h>
 #include <type_traits>
 
+#include "hopper_async.cuh"
+
 namespace {
 
 constexpr int DH = 64;            // head size
@@ -128,10 +130,6 @@ size_t smem_bytes(int rel, int pos_ld) {
   return 1024 + (rel == 1 ? POS_OFF + (size_t)BQ * pos_ld * 4 : BAR_OFF + NBARS * 8);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // Byte offset of the 16-byte chunk c (0-15: columns 4c..4c+3) of row r of a
 // K-major tile of R rows x 64 f32 as wgmma reads it with the 128-byte
 // swizzle: columns 0-31 of all rows first, then columns 32-63, each as R / 8
@@ -148,11 +146,6 @@ __device__ __forceinline__ uint64_t kdesc(uint32_t a, int ks, int R) {
   return (uint64_t)((s & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
-// TF32 to nearest, ties away from zero, as cvt.rna for a finite x
-__device__ __forceinline__ uint32_t tf32_bits(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-__device__ __forceinline__ float tf32(float x) { return __uint_as_float(tf32_bits(x)); }
 __device__ __forceinline__ float4 tf32(float4 x) {
   return make_float4(tf32(x.x), tf32(x.y), tf32(x.z), tf32(x.w));
 }
@@ -165,39 +158,6 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// one arrival that also expects `bytes` of bulk copies to complete
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-// `bytes` (a multiple of 16, both ends 16-byte aligned) from global to shared
-// memory by the TMA unit, completing on `bar`
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
 // this thread's shared-memory stores, visible to wgmma (the async proxy)
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -207,27 +167,6 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 }
 __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// pins registers that an asynchronous wgmma reads or writes: the compiler
-// moves no access of them across this point
-template <int N>
-__device__ __forceinline__ void keep(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void keep(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 #define D4(c, i) c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3])

@@ -6,9 +6,11 @@ FFN, self-attention with the relative_key bias of left 64 / right 8,
 causal depthwise conv of kernel 31, half-step FFN, final LayerNorm). Only
 ``output_layer`` blocks are built and run.
 
-The linears are cuBLAS matmuls and the depthwise conv is ``F.conv1d`` with
-``groups=H``; attention is kernel K4 (``ops/flash_attention.py``), whose
-plain version runs for CPU tensors. The numpy initialiser makes the same
+The linears are ``ops/linear.py:Linear``: on the card at a stage whose
+TF32 switch is off (``highest``) the 3xTF32 GEMM ``linear_3xtf32``, under
+TF32 cuBLAS, on the CPU ``F.linear``. The depthwise conv is ``F.conv1d``
+with ``groups=H``; attention is kernel K4 (``ops/flash_attention.py``),
+whose plain version runs for CPU tensors. The numpy initialiser makes the same
 draws, in the same order, as the JAX package's, so ``weights="random"``
 gives both packages bit-identical parameters.
 
@@ -44,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_attention_relkey
+from ..ops.linear import Linear
 from ..parallel.collectives import all_reduce, row_linear
 from ..parallel.mesh import Axis, single_axis
 from ..runtime.precision import as_stage_precision, bf16_norm, tf32_numerics
@@ -86,8 +89,8 @@ class FeedForward(nn.Module):
     def __init__(self, cfg: W2VBertConfig, tp: Axis = single_axis("tp")):
         super().__init__()
         self.tp = tp
-        self.inp = nn.Linear(cfg.hidden_size, cfg.intermediate_size // tp.size)
-        self.out = nn.Linear(cfg.intermediate_size // tp.size, cfg.hidden_size)
+        self.inp = Linear(cfg.hidden_size, cfg.intermediate_size // tp.size)
+        self.out = Linear(cfg.intermediate_size // tp.size, cfg.hidden_size)
 
     def forward(self, x: torch.Tensor, P) -> torch.Tensor:
         with P.numerics("ffn_in"):
@@ -103,10 +106,10 @@ class RelKeyAttention(nn.Module):
         super().__init__()
         H, Hl = cfg.hidden_size, cfg.hidden_size // tp.size
         self.cfg, self.tp = cfg, tp
-        self.q = nn.Linear(H, Hl)
-        self.k = nn.Linear(H, Hl)
-        self.v = nn.Linear(H, Hl)
-        self.out = nn.Linear(Hl, H)
+        self.q = Linear(H, Hl)
+        self.k = Linear(H, Hl)
+        self.v = Linear(H, Hl)
+        self.out = Linear(Hl, H)
         self.distance_embedding = nn.Parameter(torch.zeros(cfg.num_positions, cfg.head_size))
 
     def forward(self, x: torch.Tensor, frame_mask: Optional[torch.Tensor], P) -> torch.Tensor:
@@ -138,10 +141,10 @@ class ConvModule(nn.Module):
         Hl = H // tp.size  # this rank's channels
         self.tp = tp
         self.layer_norm = nn.LayerNorm(H, eps=cfg.layer_norm_eps)
-        self.pw1 = nn.Linear(H, 2 * Hl, bias=False)  # [a | b] of the GLU, each Hl wide
+        self.pw1 = Linear(H, 2 * Hl, bias=False)  # [a | b] of the GLU, each Hl wide
         self.dw_weight = nn.Parameter(torch.zeros(Hl, 1, K))  # [Hl, 1, K], F.conv1d layout
         self.dw_layer_norm = nn.LayerNorm(H, eps=cfg.layer_norm_eps)
-        self.pw2 = nn.Linear(Hl, H, bias=False)
+        self.pw2 = Linear(Hl, H, bias=False)
 
     def _dw_norm(self, h: torch.Tensor) -> torch.Tensor:
         """The channel LayerNorm after the depthwise conv; under tp over
@@ -208,7 +211,7 @@ class W2VBertFeatures(nn.Module):
                              f"and the {cfg.intermediate_size} ffn channels")
         self.cfg = cfg
         self.fp_layer_norm = nn.LayerNorm(cfg.feature_projection_input_dim, eps=cfg.layer_norm_eps)
-        self.projection = nn.Linear(cfg.feature_projection_input_dim, cfg.hidden_size)
+        self.projection = Linear(cfg.feature_projection_input_dim, cfg.hidden_size)
         self.layers = nn.ModuleList(ConformerBlock(cfg, tp) for _ in range(output_layer))
 
     def forward(self, input_features: torch.Tensor,

@@ -3,8 +3,9 @@
 All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` (one
 process per file, all at once) and linked into one shared library with a
 plain C interface, at first use, into ``_build/`` beside the package's
-sources. The file name carries a hash of the sources and flags, so an edit
-rebuilds and an unchanged tree reuses the library.
+sources. The file name carries a hash of the sources, the headers they
+include (``csrc/*.cuh``) and the flags, so an edit rebuilds and an
+unchanged tree reuses the library.
 The library is loaded with ctypes; every pointer and the stream pass as
 ``c_void_p``.
 
@@ -51,6 +52,7 @@ SIGNATURES = {
     **{f"decode_ffn_tp_mlp_{t}": (_P,) * 11 + (_I,) * 3 + (_F,) for t in ("f32", "bf16")},
     **{f"decode_ffn_tp_add_{t}": (_P,) * 4 + (_I,) * 2 for t in ("f32", "bf16")},
     **{f"attn_ablation_{t}": (_P,) * 4 + (_I,) * 4 for t in ("f32", "bf16")},
+    "linear_3xtf32_f32": (_P,) * 5 + (_I,) * 3,
 }
 
 #: suffix of the entry points for each element type a kernel takes
@@ -69,7 +71,7 @@ def _nvcc() -> str:
 
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(SRC_DIR.glob("*.cu")):
+    for src in sorted([*SRC_DIR.glob("*.cu"), *SRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libaudiotoken_kernels_{h.hexdigest()[:16]}.so"

@@ -4,12 +4,17 @@ Each policy mirrors the JAX package's policy of the same name: its compute
 dtype, and the ``jax.lax.Precision`` its f32 products run at, which maps to
 the card by one rule (:data:`TF32`):
 
-  - ``HIGHEST`` -> IEEE f32 in cuBLAS and cuDNN;
+  - ``HIGHEST`` -> f32 accuracy: IEEE f32 in cuBLAS and cuDNN, or 3xTF32
+    split precision on the tensor cores in the hand-written kernels;
   - ``HIGH`` and ``DEFAULT`` -> TF32 (a 10-bit mantissa on the tensor cores).
 
 So:
 
-  - "highest":  f32 operands, IEEE f32 convolutions and matmuls (token parity)
+  - "highest":  f32 operands, f32-accurate convolutions and matmuls (token
+                parity): the semantic_m conformer's linears on the 3xTF32
+                GEMM (``ops/linear.py:Linear``, which takes it wherever
+                cuBLAS's TF32 switch is off), the other matmuls and the
+                convolutions IEEE f32 in cuBLAS and cuDNN
   - "high":     f32 operands, TF32 in cuDNN and cuBLAS
   - "default":  the same as "high" on this card
   - "bfloat16": bf16 operands where the JAX package computes in bf16 (the

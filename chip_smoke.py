@@ -121,6 +121,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and 32 x 30 s: 8 window launches, 2 of K3 and 14 of ``elu_pad`` a
      forward (counts zeroed just before), neither K1 nor K2, the RTFx and
      peak memory, and a profiled forward;
+  4h. ``linear_3xtf32`` (``csrc/linear_3xtf32.cu``, the semantic_m
+     conformer's linears at ``highest``) at each of the forward's five
+     (K, N) shapes (``LINEAR_SHAPES``) over a B=8 x 30 s call's 11,992
+     rows: its largest error against a float64 product at most
+     ``LINEAR_ERR_RATIO`` times cuBLAS IEEE SGEMM's on the same inputs, its
+     time beside its plain twin (three TF32 products of the split parts)
+     and cuBLAS IEEE SGEMM (the yardstick, never called by the port), its
+     bound (three TF32 passes at 495 TFLOP/s, bytes at 3.35 TB/s), and the
+     forward's 191 launches summed; phase 4b requires 191 launches for
+     every 19 of K4 (one conformer forward) over its entry points, and
+     exactly 19 and 191 in one B=8 x 30 s forward with the counts zeroed
+     just before it, the number the kernels line reports;
   4d. the semantic_s main path: ``AudioToken(Tokenizers.semantic_s)``
      encode of WAV files (one of 90 s, in 30 s chunks), then
      ``HubertEncoder`` at 8 and 32 x 30 s of int16 PCM in both attention
@@ -158,7 +170,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      every seed; the other modes are measured, not gated. K1-K3 (acoustic)
      and K4 (the semantic encoders) must launch during it, K4 in one TF32
      pass under ``high``, ``default`` and ``bfloat16`` and in 3xTF32 under
-     ``highest`` and ``mixed`` (the other form not at all). Then seed 0's
+     ``highest`` and ``mixed`` (the other form not at all), and semantic_m's
+     linears take ``linear_3xtf32`` under ``highest`` and ``mixed`` alone
+     (semantic_s's never). Then seed 0's
      encoder built with ``buckets=`` one 12 s bucket must pad the
      battery's 8 s rows to it and give the ids that the default grid gives
      the rows padded to 12 s by hand.
@@ -311,6 +325,7 @@ from audiotoken_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_window_plain,
     noncausal_attention_plain,
 )
+from audiotoken_tpu_torch.ops.linear import linear_3xtf32, linear_3xtf32_twin  # noqa: E402
 from audiotoken_tpu_torch.ops.lookup import nearest_centroid  # noqa: E402
 from audiotoken_tpu_torch.ops.lstm import lstm_layer, lstm_layer_plain  # noqa: E402
 from audiotoken_tpu_torch.ops.rvq import rvq_encode, rvq_encode_plain, rvq_plan  # noqa: E402
@@ -344,8 +359,17 @@ DECODE_KERNELS = (flash_attention_plain, decode_attention, decode_qkv, decode_ff
 # decode_ffn_tp, K7's tensor-parallel entry, runs on phase 7's tp=2 sampler
 # flash_attention_relkey_bf16, K4's bf16 form, runs on the public op's bf16 input (3f)
 KERNELS = (ACOUSTIC_KERNELS + (flash_attention_relkey,) + DECODE_KERNELS
-           + (decode_ffn_tp, flash_attention_relkey_bf16, flash_attention_window))
+           + (decode_ffn_tp, flash_attention_relkey_bf16, flash_attention_window, linear_3xtf32))
 W2V_BLOCKS = 19  # conformer blocks a semantic_m forward runs, one K4 launch each
+# (K, N, launches a semantic_m forward) of the conformer's linears: q, k, v,
+# out and pw2; the feature projection; pw1; each FFN's input; each FFN's output
+LINEAR_SHAPES = ((1024, 1024, 5 * W2V_BLOCKS), (160, 1024, 1), (1024, 2048, W2V_BLOCKS),
+                 (1024, 4096, 2 * W2V_BLOCKS), (4096, 1024, 2 * W2V_BLOCKS))
+LINEAR_LAUNCHES = sum(n for _, _, n in LINEAR_SHAPES)  # 191
+LINEAR_ROWS = 8 * 1499  # a B=8 x 30 s call's frames
+# 4h: the 3xTF32 GEMM's largest error against float64, as a multiple of
+# cuBLAS IEEE SGEMM's on the same inputs (0.2-0.3 at these shapes on the H100)
+LINEAR_ERR_RATIO = 4
 # Every elu_pad launch of one SEANet forward at B=32 x 30 s, in its order:
 # (channels, samples, layout, (left, right), residual, elu, keep_input).
 # layout: 0 a contiguous x; k > 0 a transposed conv's output with k samples
@@ -955,8 +979,10 @@ def _check_ids(ids, shape):
 
 
 def phase4b_semantic_m(dev, tmp):
-    """The semantic_m entry points; returns K4's launch count and the
-    facade (its seed-0 encoder is reused by phase 5b)."""
+    """The semantic_m entry points, then one B=8 x 30 s forward with the
+    counts zeroed just before it; returns K4's launch count over the entry
+    points, that forward's ``linear_3xtf32`` launches and the facade (its
+    seed-0 encoder is reused by phase 5b)."""
     rng = np.random.default_rng(8)
     clip90 = (0.2 * rng.standard_normal(90 * SR_M)).astype(np.float32)
     clip7 = (0.2 * rng.standard_normal(7 * SR_M + 123)).astype(np.float32)
@@ -996,10 +1022,22 @@ def phase4b_semantic_m(dev, tmp):
         say(f"[4b] Wav2VecBertEncoder B={B} x 30 s int16: median wall {wall * 1e3:.1f} ms "
             f"(runs {', '.join(f'{w * 1e3:.1f}' for w in walls)}), RTFx {B * 30.0 / wall:.1f}")
     n = flash_attention_relkey.launches
-    say(f"[4b] K4 launches during the semantic_m main path: {n} over {forwards} forwards")
+    say(f"[4b] K4 launches during the semantic_m main path: {n} over {forwards} forwards; "
+        f"linear_3xtf32: {linear_3xtf32.launches}")
     if n < W2V_BLOCKS * forwards:
         raise AssertionError(f"K4 launched {n} times, expected >= {W2V_BLOCKS} x {forwards}")
-    return n, at, (pcm30[:8], ids8)
+    if linear_3xtf32.launches * W2V_BLOCKS != LINEAR_LAUNCHES * n:  # 191 a conformer forward
+        raise AssertionError(f"linear_3xtf32 launched {linear_3xtf32.launches} times beside "
+                             f"{n} of K4, expected {LINEAR_LAUNCHES} for every {W2V_BLOCKS}")
+    reset_counts()
+    enc(pcm30[:8])
+    torch.cuda.synchronize()
+    one = (flash_attention_relkey.launches, linear_3xtf32.launches)
+    say(f"[4b] one B=8 x 30 s forward: K4 {one[0]}, linear_3xtf32 {one[1]} launches")
+    if one != (W2V_BLOCKS, LINEAR_LAUNCHES):
+        raise AssertionError(f"one forward launched K4 {one[0]} and linear_3xtf32 {one[1]} "
+                             f"times, expected {W2V_BLOCKS} and {LINEAR_LAUNCHES}")
+    return n, one[1], at, (pcm30[:8], ids8)
 
 
 def phase5b_semantic_m_goldens(dev, tmp, at, keep):
@@ -2049,6 +2087,53 @@ def phase4g_mimi(dev, B=32):
     return counts, res
 
 
+def phase4h_linear(dev, M=LINEAR_ROWS):
+    """``linear_3xtf32`` at each (K, N) of a semantic_m forward over ``M``
+    rows: its error against float64 beside cuBLAS IEEE SGEMM's, its time
+    beside its twin and cuBLAS, its bound; then the forward's launches
+    summed. Returns the kernels line's entry."""
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "max_ratio": 0.0}
+    flops = moved = 0
+    for K, N, per in LINEAR_SHAPES:
+        x = _randn(dev, (M, K), torch.float32, 400 + K)
+        w = _randn(dev, (N, K), torch.float32, 401 + N, K ** -0.5)
+        b = _randn(dev, (N,), torch.float32, 402)
+        ref = F.linear(x.double(), w.double(), b.double())
+        n0 = linear_3xtf32.launches
+        err = (linear_3xtf32(x, w, b).double() - ref).abs().max().item()
+        torch.cuda.synchronize()
+        if linear_3xtf32.launches != n0 + 1:
+            raise AssertionError("linear_3xtf32 did not launch its kernel")
+        lib = lambda: F.linear(x, w, b)  # noqa: E731,B023
+        lib_err = (lib().double() - ref).abs().max().item()
+        del ref
+        ms = device_ms(lambda: linear_3xtf32(x, w, b))  # noqa: B023
+        plain_ms = device_ms(lambda: linear_3xtf32_twin(x, w, b), n=5)  # noqa: B023
+        library_ms = device_ms(lib)
+        f, m = 2 * M * N * K, nbytes(x, w, b) + 4 * M * N
+        bd = bound(f, m, "tf32x3")
+        say(f"[4h] linear_3xtf32 [{M}, {K}] x [{N}, {K}]^T ({per} a forward): max|kernel-f64| "
+            f"{err:.3e}, cuBLAS IEEE {lib_err:.3e} (ratio {err / lib_err:.2f})  kernel {ms:.3f} ms "
+            f"({f / ms / 1e9:.1f} TFLOP/s)  twin {plain_ms:.3f} ms  cuBLAS IEEE {library_ms:.3f} ms "
+            f"({top_kernel(lib)[:60]})  bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}; "
+            f"{100 * bd['bound_ms'] / ms:.1f} %)")
+        if not err <= LINEAR_ERR_RATIO * lib_err:
+            raise AssertionError(f"linear_3xtf32 at K={K} N={N}: error {err} above "
+                                 f"{LINEAR_ERR_RATIO} x cuBLAS's {lib_err}")
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms)):
+            total[key] += per * v
+        total["max_ratio"] = max(total["max_ratio"], err / lib_err)
+        flops, moved = flops + per * f, moved + per * m
+        del x, w, b
+    bd = bound(flops, moved, "tf32x3")
+    say(f"[4h] a semantic_m forward's {LINEAR_LAUNCHES} linears at B=8 x 30 s: kernel "
+        f"{total['ms']:.2f} ms ({flops / total['ms'] / 1e9:.1f} TFLOP/s)  twin "
+        f"{total['plain_ms']:.2f} ms  cuBLAS IEEE {total['library_ms']:.2f} ms  bound "
+        f"{bd['bound_ms']:.2f} ms ({100 * bd['bound_ms'] / total['ms']:.1f} %)")
+    torch.cuda.empty_cache()
+    return {**total, **bd, "bound_f32_ms": bound(flops, moved, "f32")["bound_ms"]}
+
+
 def phase4d_semantic_s(dev, tmp):
     """The semantic_s entry points; returns K4's launch count, the facade
     (its seed-0 encoder is reused by phase 5d) and the default form's
@@ -2163,7 +2248,8 @@ def phase5f_precision_ladder(dev, tok, keep):
     reset_counts()
     k4 = None if tok == "acoustic" else (
         lambda: {"3xTF32": flash_attention_relkey.launches,
-                 "one pass": flash_attention_relkey.launches_1pass})
+                 "one pass": flash_attention_relkey.launches_1pass,
+                 "linear_3xtf32": linear_3xtf32.launches})
     lad = ladder.run_ladder(tok, encs, batches=(8, 32), say=say, tag="[5f]", counts=k4)
     kernels = ACOUSTIC_KERNELS if tok == "acoustic" else (flash_attention_relkey,)
     counts = {k.__name__: k.launches for k in kernels}
@@ -2177,7 +2263,9 @@ def phase5f_precision_ladder(dev, tok, keep):
         onepass = mode in ONEPASS_MODES
         ok = (n["one pass"] > 0 and n["3xTF32"] == 0) if onepass else (
             n["3xTF32"] > 0 and n["one pass"] == 0)
-        say(f"[5f] {tok} {mode:8s}: K4 launches {n} ({'one pass' if onepass else '3xTF32'} "
+        # semantic_m's linears take the 3xTF32 GEMM exactly where K4 takes 3xTF32
+        ok &= (n["linear_3xtf32"] > 0) == (tok == "semantic_m" and not onepass)
+        say(f"[5f] {tok} {mode:8s}: K4 and linear launches {n} ({'one pass' if onepass else '3xTF32'} "
             f"expected) {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"{mode} launched K4 {n}")
@@ -3209,6 +3297,7 @@ def main():
         res.update(phase3g_flash_onepass(dev))
     mimi_counts, mimi_res = phase4g_mimi(dev)
     res.update(mimi_res)
+    res["linear_3xtf32"] = phase4h_linear(dev)
     with tempfile.TemporaryDirectory() as tmp:
         counts, device_rtfx = phase4_main_path(dev, tmp)
         keep = {}
@@ -3216,7 +3305,8 @@ def main():
         phase5f_precision_ladder(dev, "acoustic", keep)
         del keep
         phase6a_converters(dev, tmp, ids_s0)
-        counts["flash_attention_relkey"], at, m8 = phase4b_semantic_m(dev, tmp)
+        counts["flash_attention_relkey"], counts["linear_3xtf32"], at, m8 = \
+            phase4b_semantic_m(dev, tmp)
         keep = {}
         phase5b_semantic_m_goldens(dev, tmp, at, keep)
         _, c5f = phase5f_precision_ladder(dev, "semantic_m", keep)
@@ -3302,6 +3392,9 @@ def main():
          "audiotoken_tpu_torch/csrc/flash_attention.cu", "none"),
         ("rvq_d256", "rvq_encode_d256", "audiotoken_tpu_torch/csrc/rvq.cu", "none"),
         ("elu_pad_zero", "elu_pad_zero", "audiotoken_tpu_torch/csrc/elu_pad.cu", "none"),
+        # the semantic_m conformer's linears at highest (4h), which the JAX
+        # package leaves to XLA; launches a forward
+        ("linear_3xtf32", "linear_3xtf32", "audiotoken_tpu_torch/csrc/linear_3xtf32.cu", "none"),
     ]
     # the TPU script's ablations (:108), its one-pass kernel (:157), and for
     # full its baseline, the Pallas kernel of K5's tiled form
